@@ -14,7 +14,13 @@ Phases, each of which asserts (any failure exits non-zero):
      B=128, through ``HogwildSim``; then evaluation, a short fixed_rate run
      (every replica fires at once), and a tiny-config run on the card held
      against the same run on the CPU;
-  5. the kernel table as one JSON line, then the result line.
+  5. the threaded path: ``ThreadedShadowRunner`` at the same width, R=4
+     trainer threads x B=128 on 4 plan-sharded embedding PSs, shadow EASGD
+     on the flat engine, the supervisor on, each thread on its own stream;
+     exact launch counts, the device idle share of a profiled run, the cost
+     of one PS snapshot; then a threaded fixed_rate run, and a tiny
+     one-trainer threaded run on the card held against the CPU's;
+  6. the kernel table as one JSON line, then the result line.
 """
 import json
 import math
@@ -31,11 +37,14 @@ MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12, "H200": 4.
 FP32_RATE = 67e12  # H100 SXM, non-tensor fp32 (data sheet)
 R, M, B = 4, 4, 128
 TIMED_ITERS, WARM_ITERS = 20, 3
+THREADED_ITERS, PROFILED_ITERS = 40, 10  # per trainer thread
+N_SHARDS = 4
 
 # the hand-written kernels' __global__ names, as the profiler reports them
 DEVICE_NAMES = {"embedding_bag": "embedding_bag_kernel",
                 "sparse_adagrad": "sparse_adagrad_rows_kernel",
-                "easgd_round": "easgd_round_kernel"}
+                "easgd_round": "easgd_round_kernel",
+                "easgd_pair": "easgd_pair_kernel"}
 
 
 def emit(obj):
@@ -212,6 +221,29 @@ def check_kernels(torch, sim, st, mem_rate):
         emit({"phase": "kernel", **row, "fired": nf})
         if nf == 1:
             rows["easgd_round"] = row
+
+    # K4 · EASGD pair exchange on two (4096, 128) planes that differ
+    from repro_torch.kernels.easgd_update.ops import easgd_pair_flat_op
+    from repro_torch.kernels.easgd_update.ref import easgd_update_ref
+
+    ps, w = st.algo_state.clone(), stack0[1].clone()
+    ps_in, w_in = ps.clone(), w.clone()
+    kp, kw = easgd_pair_flat_op(ps, w, 0.5)
+    rp, rw = easgd_update_ref(ps, w, 0.5)
+    err = max((kp - rp).abs().max().item(), (kw - rw).abs().max().item())
+    tol = 1e-6  # the same two lerps; nvcc may contract a multiply-add into one FMA
+    assert err <= tol, ("easgd_pair", err)
+    assert torch.equal(ps, ps_in) and torch.equal(w, w_in), "easgd_pair wrote its inputs"
+    assert {kp.data_ptr(), kw.data_ptr()}.isdisjoint({ps.data_ptr(), w.data_ptr()})
+    b_ms, b_by = bound(4 * plane, 6 * plane // 4, mem_rate)
+    rows["easgd_pair"] = dict(
+        name="easgd_pair", route="cuda",
+        source="src/repro_torch/kernels/easgd_update/csrc/easgd_update.cu",
+        replaces="src/repro/kernels/easgd_update/easgd_update.py:63",
+        max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
+        **timings(torch, lambda: easgd_pair_flat_op(ps, w, 0.5),
+                  lambda: easgd_update_ref(ps, w, 0.5), DEVICE_NAMES["easgd_pair"]))
+    emit({"phase": "kernel", **rows["easgd_pair"], "shape": list(ps.shape)})
     return rows
 
 
@@ -243,6 +275,65 @@ def profile_window(torch, sim, state, iters):
         out["state"]
 
 
+def busy_union_ms(intervals):
+    """Total length of the union of (start, end) intervals, in ms."""
+    total, cur_s, cur_e = 0.0, None, None
+    for a, b in sorted(intervals):
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def threaded_profile(torch, runner, iters):
+    """Device idle share of a threaded run, from a torch.profiler trace of
+    every stream: the window runs from the trainers' first embedding-bag
+    launch to the last device activity; busy is the union of device
+    intervals in it (the streams overlap, so their times do not add)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = runner.run(iters)
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    assert evs, "the profiler recorded no device activity"
+    first = min(ev.time_range.start for ev in evs if DEVICE_NAMES["embedding_bag"] in ev.name)
+    spans = [(max(ev.time_range.start, first), ev.time_range.end) for ev in evs
+             if ev.time_range.end > first]
+    window_ms = (max(e for _, e in spans) - first) / 1e3
+    busy_ms = busy_union_ms(spans)
+    by_name = {}
+    for ev in evs:
+        if ev.time_range.end > first:
+            tot, cnt = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3, cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"iters": iters, "window_ms": window_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / window_ms, "sync_rounds": out["sync_rounds"],
+            "device_launches": sum(c for _, c in by_name.values()),
+            "top_device": [[n[:80], t, c] for n, (t, c) in top]}
+
+
+def snapshot_ms(torch, emb):
+    """Event-timed ``snapshot_all`` of every healthy shard, on its own stream."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        emb.snapshot_all()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        emb.snapshot_all()
+        end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def reset_counts(ops):
     for op in ops:
         op.launches = 0
@@ -256,11 +347,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch import optim
+    from repro_torch import tree as T
     from repro_torch.configs import dlrm_ctr
-    from repro_torch.core.runners import HogwildSim
+    from repro_torch.core.runners import HogwildSim, ThreadedShadowRunner
     from repro_torch.core.sync import SyncConfig
     from repro_torch.kernels import backend
-    from repro_torch.kernels.easgd_update.ops import easgd_round_op
+    from repro_torch.kernels.easgd_update.ops import easgd_pair_flat_op, easgd_round_op
     from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
     from repro_torch.kernels.sparse_adagrad.ops import sparse_adagrad_op
 
@@ -279,8 +371,11 @@ def main() -> int:
     built = backend.build(KERNELS)
     for name in KERNELS:
         with open(backend.library_path(name) + ".log") as f:
-            ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+            ptxas = [ln.strip() for ln in f
+                     if "registers" in ln or "spill" in ln or "entry function" in ln]
         emit({"phase": "build", "kernel": name, "ptxas": ptxas})
+        if name == "easgd_update":
+            assert any("easgd_pair_kernel" in ln for ln in ptxas), "no easgd_pair_kernel built"
     emit({"phase": "build", "built": built, "seconds": time.perf_counter() - t0})
 
     # 4a · the main path's sim and state (its tables feed phase 3 too)
@@ -298,7 +393,7 @@ def main() -> int:
 
     # 4 · the main path
     ops = {"embedding_bag": embedding_bag_op, "sparse_adagrad": sparse_adagrad_op,
-           "easgd_round": easgd_round_op}
+           "easgd_round": easgd_round_op, "easgd_pair": easgd_pair_flat_op}
     warm = sim.run(WARM_ITERS, state=st)
     torch.cuda.synchronize()
     reset_counts(ops.values())
@@ -319,6 +414,7 @@ def main() -> int:
           "loss_first": losses[0], "loss_last": losses[-1], "eval": ev,
           "sync_count": out["sync_count"], "avg_sync_gap": out["avg_sync_gap"],
           "launches": launches, "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    assert launches["easgd_pair"] == 0, launches  # HogwildSim lands with the round kernel
     for k, row in rows.items():
         row["launches"] = launches[k]
     t0 = time.perf_counter()
@@ -354,7 +450,79 @@ def main() -> int:
         assert abs(a - b) <= 1e-5 + 1e-4 * abs(b), ("tiny cuda vs cpu", a, b)  # trajectory tol
     emit({"phase": "reference", "max_loss_diff_cuda_vs_cpu": diff, "eval": tiny["cuda"][2]})
 
-    # 5 · the kernel table, the card, the result
+    # 5 · the threaded path at full width: R=4 trainer threads x B=128, 4 PSs
+    runner = ThreadedShadowRunner(cfg, SyncConfig(), n_trainers=R, batch_size=B,
+                                  optimizer=optim.adagrad(0.02), n_emb_shards=N_SHARDS,
+                                  device="cuda")
+    assert runner.supervise and runner.plan.n_shards == N_SHARDS
+    t0 = time.perf_counter()
+    runner.warmup()
+    emit({"phase": "threaded_setup", "warmup_s": time.perf_counter() - t0,
+          "shard_rows": list(runner.plan.shard_rows)})
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops.values())
+    out = runner.run(THREADED_ITERS)
+    launches = {k: op.launches for k, op in ops.items()}
+    per_kernel_call = R * N_SHARDS * THREADED_ITERS
+    assert all(math.isfinite(x) for x in out["train_loss"]), out["train_loss"]
+    assert out["iter_count"] == [THREADED_ITERS] * R, out["iter_count"]
+    assert out["sync_count"] > 0 and out["sync_rounds"] >= 10, out["sync_rounds"]
+    bad = [e for e in out["supervision_events"] if e.kind in ("restart", "degraded")]
+    assert not bad and not out["sync_degraded"], bad
+    assert launches["embedding_bag"] == launches["sparse_adagrad"] == per_kernel_call, launches
+    assert launches["easgd_pair"] > 0 and launches["easgd_round"] == 0, launches
+    emit({"phase": "threaded_main_path", "mode": "shadow", "iters_per_trainer": THREADED_ITERS,
+          "eps": out["eps"], "eps_window": out["eps_window"], "wall_s": out["wall_s"],
+          "per_trainer_eps": out["per_trainer_eps"], "sync_rounds": out["sync_rounds"],
+          "rounds_per_s": out["sync_rounds"] / out["wall_s"], "sync_count": out["sync_count"],
+          "avg_sync_gap": out["avg_sync_gap"], "train_loss": out["train_loss"],
+          "launches": launches, "supervision_events": len(out["supervision_events"]),
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    rows["easgd_pair"]["launches"] = launches["easgd_pair"]
+    for k in ("embedding_bag", "sparse_adagrad"):
+        rows[k]["launches_threaded"] = launches[k]
+    snap_ms = snapshot_ms(torch, runner.emb)
+    snap_bytes = 2 * sum(t.numel() * 4 for st in runner.emb.states for t in st.values())
+    emit({"phase": "threaded_snapshot", "snapshot_all_ms": snap_ms, "bytes": snap_bytes,
+          "bound_ms": snap_bytes / mem_rate * 1e3})
+    prof = threaded_profile(torch, runner, PROFILED_ITERS)
+    emit({"phase": "threaded_profile", **prof})
+    del runner, out
+    torch.cuda.empty_cache()
+
+    # threaded fixed_rate: every round is run by the barrier's elected leader
+    fr = ThreadedShadowRunner(cfg, SyncConfig(mode="fixed_rate", gap=5), n_trainers=R,
+                              batch_size=B, optimizer=optim.adagrad(0.02),
+                              n_emb_shards=N_SHARDS, device="cuda")
+    reset_counts(ops.values())
+    out_fr = fr.run(10)
+    assert all(math.isfinite(x) for x in out_fr["train_loss"]), out_fr["train_loss"]
+    assert out_fr["sync_count"] == R * (10 // 5), out_fr["sync_count"]
+    assert easgd_pair_flat_op.launches == R * (10 // 5), easgd_pair_flat_op.launches
+    emit({"phase": "threaded_main_path", "mode": "fixed_rate", "iters_per_trainer": 10,
+          "sync_count": out_fr["sync_count"], "eps": out_fr["eps"],
+          "train_loss": out_fr["train_loss"], "easgd_pair_launches": easgd_pair_flat_op.launches})
+    del fr, out_fr
+    torch.cuda.empty_cache()
+
+    # the same tiny one-trainer threaded run (deterministic) on the card and the CPU
+    tiny = {}
+    for dev in ("cuda", "cpu"):
+        r1 = ThreadedShadowRunner(dlrm_ctr.tiny(), SyncConfig(mode="fixed_rate", gap=4),
+                                  n_trainers=1, batch_size=32, optimizer=optim.adagrad(0.02),
+                                  supervise=False, device=dev)
+        o = r1.run(12)
+        tiny[dev] = (o["w"][0], o["emb_state"], o["sync_count"])
+    assert tiny["cuda"][2] == tiny["cpu"][2] == 12 // 4
+    diff = 0.0
+    pairs = list(zip(T.leaves(tiny["cuda"][0]), T.leaves(tiny["cpu"][0])))
+    pairs += [(tiny["cuda"][1][k], tiny["cpu"][1][k]) for k in ("table", "acc")]
+    for a, b in pairs:
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)  # trajectory tol
+        diff = max(diff, (a.cpu() - b).abs().max().item())
+    emit({"phase": "threaded_reference", "max_abs_diff_cuda_vs_cpu": diff})
+
+    # 6 · the kernel table, the card, the result
     emit({"kernels": [{k: v for k, v in row.items() if k != "tol"} for row in rows.values()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

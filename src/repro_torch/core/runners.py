@@ -1,5 +1,5 @@
-"""The deterministic training simulator, the twin of ``HogwildSim`` in
-``repro/core/runners.py``.
+"""The two training runners, twins of ``HogwildSim`` and
+``ThreadedShadowRunner`` in ``repro/core/runners.py``.
 
 ``HogwildSim`` simulates n trainers x m Hogwild worker threads over one
 shared packed embedding table and per-trainer dense replicas. Hogwild
@@ -16,11 +16,21 @@ kernel once with every thread's gradient. A landing sync is one launch of
 the EASGD round kernel over the flat ``(R, n_rows, 128)`` replica buffer
 (``engine="flat"``, the default); ``engine="pytree"`` runs the tree oracle.
 
-Not yet ported: elastic membership, the tiered cache, step pipelining, mode
-switching and checkpoints; passing their options raises.
+``ThreadedShadowRunner`` (below) is the paper's Algorithm 1 with real
+threads: trainer threads race on plan-sharded embedding PSs while a
+background shadow thread syncs the dense replicas, each thread on its own
+CUDA stream.
+
+Not yet ported: in ``HogwildSim`` elastic membership schedules, the tiered
+cache, step pipelining, mode switching and checkpoints; in
+``ThreadedShadowRunner`` the cache, step pipelining, the straggler policy
+and the mode controller. Passing their options raises.
 """
 from __future__ import annotations
 
+import threading
+import time
+import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -28,11 +38,16 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.core import algorithms
+from repro_torch.core import algorithms, streams
 from repro_torch.core import sync as S
+from repro_torch.core.elp import EPSMeter, SlotEPS
 from repro_torch.core.flatspace import FlatSpace
+from repro_torch.core.membership import FaultSpec, Membership
+from repro_torch.core.supervision import Supervisor, SupervisorConfig
 from repro_torch.data import ctr
+from repro_torch.embeddings import shards as emb_shards
 from repro_torch.embeddings import table as emb
+from repro_torch.kernels import backend
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import dlrm
 from repro_torch.optim import Optimizer
@@ -243,3 +258,688 @@ class HogwildSim:
             pooled = emb.lookup(st.emb_state, self.spec, b["sparse"])
             tot += float(dlrm.bce_loss(dlrm.forward(w, b["dense"], pooled), b["labels"]))
         return tot / n_batches
+
+
+# ---------------------------------------------------------------------------
+# Real-thread runner (faithful Algorithm 1)
+# ---------------------------------------------------------------------------
+
+# the kernel sources the threaded path launches: K1, K2 and the EASGD file
+# (K3 round, K4 pair)
+THREADED_KERNELS = ("embedding_bag", "sparse_adagrad", "easgd_update")
+
+
+class ThreadedShadowRunner:
+    """Trainer threads + a background shadow thread over genuinely shared state.
+
+    The embedding state is read and written WITHOUT a lock (Hogwild:
+    concurrent trainers can lose updates; that is the point). Dense replicas
+    are owned by their trainer; the shadow thread interpolates them in the
+    background. The embedding collection is plan-sharded
+    (``embeddings/shards.py``): lookups route by the LPT plan, one
+    embedding-bag launch per shard, and each trainer's backward is one
+    sparse-Adagrad launch per shard. The background round is built by the
+    ``SyncAlgorithm`` (``make_shadow_round``): for EASGD on the flat engine,
+    one out-of-place pair-kernel launch per live replica.
+
+    One GPU, several threads. The reference overlaps its threads because
+    jitted compute releases the GIL and its arrays are immutable, swapped
+    wholesale. Here:
+
+    * every trainer thread, the shadow thread and the supervisor's tick run
+      their device work on their own CUDA stream (``torch.cuda.stream``; the
+      kernel wrappers launch on the current stream). Nothing of the hot path
+      runs on the default stream and no thread calls
+      ``torch.cuda.synchronize()``: ``float(loss)`` waits for the trainer's
+      own stream only. ``run()`` completes all initial state on the device
+      before it starts the threads;
+    * where the reference swap-publishes (trainer i publishes ``w[i]``, the
+      round republishes the cohort's planes and the algorithm state, a join
+      bootstraps a plane), the port publishes a ``streams.Published``: the
+      value plus a CUDA event recorded on the producer's stream after its
+      last write. The reader ``streams.consume``s it: its stream waits on
+      the event before the first read, and ``record_stream`` keeps the
+      allocator from reusing the memory while the reader's stream may still
+      read it. This holds both ways: trainer -> shadow (a round reads the
+      planes) and shadow -> trainer (landed planes);
+    * the embedding shards are updated in place, so trainers race row by
+      row, and PS snapshots are copies (see ``embeddings/shards.py``). The
+      shard tensors are ``record_stream``-ed for every thread's stream once,
+      at the start of ``run()``.
+
+    Not yet ported: ``cache``, ``pipeline``, ``straggler_policy`` and
+    ``mode_controller`` raise. The result dict keeps their keys at their
+    defaults (``cache_stats={}``, ``pipeline_stats={}``, ``mode`` the
+    configured mode, no transitions)."""
+
+    def __init__(
+        self,
+        cfg,  # DLRMConfig
+        sync_cfg: S.SyncConfig,
+        *,
+        n_trainers: int,
+        batch_size: int,
+        optimizer: Optimizer,
+        emb_lr: float = 0.05,
+        seed: int = 0,
+        sync_sleep_s: float = 0.0,
+        n_emb_shards: Optional[int] = None,
+        fault_spec: Optional[FaultSpec] = None,
+        membership: Optional[Membership] = None,
+        eps_window_s: float = 2.0,
+        straggler_policy=None,
+        supervise: bool = True,
+        supervisor_config: Optional[SupervisorConfig] = None,
+        ps_snapshot_every: int = 2,
+        shard_retry: Optional[emb_shards.ShardRetryPolicy] = None,
+        cache=None,
+        pipeline=None,
+        mode_controller=None,
+        device: Optional[str] = None,
+    ):
+        unported = dict(cache=cache, pipeline=pipeline, straggler_policy=straggler_policy,
+                        mode_controller=mode_controller)
+        for name, value in unported.items():
+            if value is not None:
+                raise NotImplementedError(f"ThreadedShadowRunner({name}=...) is not yet ported")
+        self.device = resolve_device(device)
+        self.cfg, self.sync_cfg = cfg, sync_cfg.validate()
+        self.engine = sync_cfg.engine
+        self.algo = algorithms.get(sync_cfg.algo)
+        self.R, self.B = n_trainers, batch_size
+        self.opt = optimizer
+        self.emb_lr = emb_lr
+        self.seed = seed
+        self.sync_sleep_s = sync_sleep_s
+        # Fault-injection harness + elastic membership: slots with a join_at
+        # schedule start dead and bootstrap mid-run.
+        self.fault = (fault_spec or FaultSpec()).validate(n_trainers)
+        if membership is None:
+            membership = Membership.from_mask(
+                [i not in self.fault.join_at for i in range(n_trainers)])
+        if membership.R_max != n_trainers:
+            raise ValueError(f"membership capacity {membership.R_max} != n_trainers {n_trainers}")
+        self.membership = membership
+        self.eps_window_s = eps_window_s
+        self.spec = emb.spec_from_config(cfg)
+        self.teacher = ctr.make_teacher(cfg, seed=seed + 777, device=self.device)
+        self.flat = _dense_flatspace(cfg) if self.engine == "flat" else None
+        if n_emb_shards is None:
+            n_emb_shards = min(4, cfg.n_sparse_features)
+        # The LPT bin_pack plan assigns tables to embedding PSs (paper §3.1).
+        self.plan = emb_shards.plan_shards(self.spec, n_emb_shards, batch_size)
+        self.n_emb_shards = self.plan.n_shards
+        # Failure-domain supervision: heartbeats over every long-lived
+        # thread, bounded shadow restarts, PS fail/recover orchestration.
+        # Chaos injection rides the supervisor's watch loop, so a FaultSpec
+        # that kills the sync thread or a PS requires supervise=True.
+        self.supervise = bool(supervise)
+        self.supervisor_config = (supervisor_config or SupervisorConfig()).validate()
+        if ps_snapshot_every < 1:
+            raise ValueError(f"ps_snapshot_every must be >= 1, got {ps_snapshot_every}")
+        self.ps_snapshot_every = int(ps_snapshot_every)
+        self.shard_retry = shard_retry
+        for s in self.fault.ps_fail_at:
+            if not 0 <= s < self.n_emb_shards:
+                raise ValueError(f"ps_fail_at names shard {s}, but the plan has "
+                                 f"{self.n_emb_shards} embedding shards")
+        sync_chaos = self.fault.sync_crash_at is not None or self.fault.sync_stall_at is not None
+        if sync_chaos and self.sync_cfg.mode == "fixed_rate":
+            raise ValueError("sync_crash_at / sync_stall_at target the shadow thread; "
+                             "mode='fixed_rate' has none")
+        if (sync_chaos or self.fault.ps_fail_at) and not self.supervise:
+            raise ValueError("FaultSpec injects sync/PS chaos, but supervise=False: the "
+                             "supervisor is both the injection clock and the recovery path")
+        self.supervisor: Optional[Supervisor] = None
+        # per-shard in-place sparse-Adagrad writes, routed by the plan
+        self._emb_updates = [
+            lambda st, idx, g, s=s: emb_shards.shard_update(self.plan, s, st, idx, g, emb_lr)
+            for s in range(self.n_emb_shards)]
+        # The background round: a host callable from the algorithm that
+        # replaces the live per-trainer planes/trees (Algorithm 1).
+        self._shadow_round = self.algo.make_shadow_round(self.sync_cfg, self.flat)
+
+    # -- one trainer iteration -------------------------------------------------
+    def _train_dense(self, w, opt_state, pooled: torch.Tensor, batch):
+        """Downstream of the lookup, for one replica: ``w`` is its plane
+        (flat) or tree (pytree). Returns new (w, opt_state), the loss and the
+        pooled gradient."""
+        tree = self.flat.unpack(w) if self.flat is not None else w
+        loss, g_w, g_pooled = dlrm.dense_loss_and_grads(tree, batch["dense"], pooled,
+                                                        batch["labels"])
+        tree, opt_state = self.opt.update(tree, opt_state, g_w)
+        return (self.flat.pack(tree) if self.flat is not None else tree), opt_state, loss, g_pooled
+
+    def warmup(self, iters: int = 1) -> None:
+        """Build every kernel of the path (one ``backend.build`` call, one
+        ``nvcc`` per source, all at once) and run ``iters`` iterations and one
+        background round on throwaway state, so the supervisor's heartbeat
+        clock never sees a first iteration paying for the build, the kernel
+        load or the cuBLAS handle. Touches no membership, meter or measured
+        state."""
+        if self.device.type == "cuda":
+            backend.build(THREADED_KERNELS)
+        w0 = dlrm.init_dense(self.cfg, torch.Generator().manual_seed(self.seed), device=self.device)
+        w = self.flat.pack(w0) if self.flat is not None else w0
+        opt_state = self.opt.init(w0)
+        d = self.spec.dim
+        embs = emb_shards.EmbeddingShards(self.plan, [
+            {k: torch.zeros((rows, d), device=self.device) for k in ("table", "acc")}
+            for rows in self.plan.shard_rows])
+        for it in range(iters):
+            batch = ctr.gen_batch(self.cfg, self.teacher, self.seed, it, self.B)
+            w, opt_state, _, g_pooled = self._train_dense(w, opt_state,
+                                                          embs.lookup(batch["sparse"]), batch)
+            for s in range(self.n_emb_shards):
+                embs.try_update(s, self._emb_updates[s], batch["sparse"], g_pooled)
+        if self.engine == "flat":
+            algo_state = self.algo.init_state_flat(w, self.sync_cfg, self.flat)
+        else:
+            algo_state = self.algo.init_state(w, self.sync_cfg)
+        n_live = max(int(self.membership.active_ids().size), 1)
+        self._shadow_round([w] * n_live, algo_state)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    # holds-lock: _state_lock
+    def _dispatch_on_leave(self, slot: int) -> None:
+        """Engine-dispatched algorithm hook for a departing slot. Caller
+        holds ``_state_lock``."""
+        state = streams.consume(self.algo_state)
+        if self.engine == "flat":
+            new = self.algo.on_leave_flat(state, slot, self.sync_cfg, self.flat)
+        else:
+            new = self.algo.on_leave(state, slot, self.sync_cfg)
+        if new is not state:
+            self.algo_state = streams.publish(new)
+
+    # holds-lock: _state_lock
+    def _admit_slot(self, slot: int, reason: str = "") -> None:
+        """join -> bootstrap -> activate. Caller holds ``_state_lock``."""
+        self.membership.join(slot, reason=reason)
+        self._bootstrap_join(slot)
+        self.membership.activate(slot)
+
+    # holds-lock: _state_lock
+    def _bootstrap_join(self, i: int) -> None:
+        """Bootstrap a joining slot through the algorithm's ``on_join`` hook
+        (EASGD: the PS plane) with a fresh optimizer state. The hook sees a
+        COMPACT stack of [donor planes..., joiner plane], joiner last; the
+        donors are exactly the live cohort. Runs on the joiner's stream."""
+        donor_ids = [int(j) for j in self.membership.active_ids()]
+        if not donor_ids:  # no live donors: keep the slot's current weights
+            self.opt_states[i] = self.opt.init(self._w0)
+            return
+        slot = len(donor_ids)  # joiner's position in the compact stack
+        active = np.asarray([True] * slot + [False])
+        planes = [streams.consume(self.w[j]) for j in donor_ids + [i]]
+        state = streams.consume(self.algo_state)
+        if self.engine == "flat":
+            buf, new_state = self.algo.on_join_flat(torch.stack(planes), slot, state, active,
+                                                    self.sync_cfg, self.flat)
+            w_i = buf[slot]
+        else:
+            stack, new_state = self.algo.on_join(algorithms._stack_trees(planes), slot, state,
+                                                 active, self.sync_cfg)
+            w_i = S.tree_slice(stack, slot)
+        ev = streams.record(self.device)
+        self.w[i] = streams.Published(w_i, ev)
+        if new_state is not state:
+            self.algo_state = streams.Published(new_state, ev)
+        self.opt_states[i] = self.opt.init(self._w0)
+
+    def run(self, iters_per_trainer: int) -> Dict[str, Any]:
+        dev = self.device
+        gen = torch.Generator().manual_seed(self.seed)
+        w0 = dlrm.init_dense(self.cfg, gen, device=dev)
+        self._w0 = w0  # written once pre-spawn, read-only after
+        # Per-PS Hogwild states, seed-identical to the packed single table.
+        self.emb = emb_shards.EmbeddingShards.init(self.plan, gen, retry=self.shard_retry,
+                                                   device=dev)
+        if self.engine == "flat":
+            plane0 = self.flat.pack(w0)
+            w_init = [plane0.clone() for _ in range(self.R)]
+            algo_state = self.algo.init_state_flat(plane0, self.sync_cfg, self.flat)
+        else:
+            w_init = [T.map(torch.clone, w0) for _ in range(self.R)]
+            algo_state = self.algo.init_state(w0, self.sync_cfg)
+        self.opt_states = [self.opt.init(w0) for _ in range(self.R)]
+        # all initial state complete on the device before any thread starts
+        init_event = streams.record(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        # published: trainer i publishes w[i]; the round republishes the
+        # cohort's planes and the algorithm state (see the class docstring)
+        self.w: List[streams.Published] = [streams.Published(x, init_event) for x in w_init]
+        self.algo_state = streams.Published(algo_state, init_event)  # guarded-by: _state_lock
+        trainer_streams = [streams.new_stream(dev) for _ in range(self.R)]
+        shadow_stream, tick_stream = streams.new_stream(dev), streams.new_stream(dev)
+        self.emb.share_with(trainer_streams + [shadow_stream, tick_stream])
+        self.done = threading.Event()
+        self.examples = 0  # guarded-by-writes: ex_lock
+        self.sync_count = 0  # guarded-by-writes: _sync_lock
+        # Failure-domain bookkeeping: captured trainer exceptions (re-raised
+        # with slot provenance after join), dead sync-thread incarnations,
+        # restart/degradation state, PS chaos tracking.
+        self._trainer_excs: List[Tuple[int, BaseException]] = []  # guarded-by-writes: _state_lock
+        self._sync_excs: List[BaseException] = []
+        self._shadow_rounds = 0  # single logical writer (generation-fenced shadow)
+        self._sync_degraded = False
+        self._sync_stalled = False
+        self._sync_crash_t: Optional[float] = None
+        self._sync_count_at_restart: List[int] = []
+        self._ps_injected: set = set()
+        self._tick_count = 0
+        self._sync_lock = threading.Lock()  # shadow/trainer threads both add
+        # serializes algo_state transitions: the shadow round vs the rare
+        # crash/join handlers
+        self._state_lock = threading.Lock()
+        self.eps_meter = EPSMeter(window_s=self.eps_window_s)
+        # per-slot meters on each trainer's BUSY clock (barrier waits excluded)
+        self.slot_eps = SlotEPS(self.R, window_s=self.eps_window_s)
+        self._alive = [True] * self.R  # guarded-by-writes: _state_lock
+        self.iter_count = [0] * self.R  # slot-owned counters
+        trainer_wall = [0.0] * self.R
+        losses: List[List[float]] = [[] for _ in range(self.R)]
+        ex_lock = threading.Lock()
+        fr_static = self.sync_cfg.mode == "fixed_rate"
+        self._mode = self.sync_cfg.mode
+        if fr_static:
+            # Foreground sync point: a Condition-based barrier whose party
+            # count tracks membership, so a crash shrinks it instead of
+            # deadlocking; a straggler still drags EVERYONE (the paper's
+            # fixed-rate failure mode).
+            self._fr_cond = threading.Condition()
+            self._fr_registered = [bool(b) for b in self.membership.active_mask()]
+            # per-slot arrival flags: the barrier fires only when every
+            # REGISTERED slot has arrived
+            self._fr_arrived = [False] * self.R
+            self._fr_gen = 0
+            # slot id of the thread elected to run the current round
+            self._fr_leader: Optional[int] = None
+        initial_active = set(int(j) for j in self.membership.active_ids())
+        self._initial_running = len(initial_active)  # guarded-by-writes: ex_lock
+
+        def _progress() -> int:
+            return max((self.iter_count[j] for j in initial_active), default=iters_per_trainer)
+
+        def _add_syncs(n: int) -> None:
+            with self._sync_lock:
+                self.sync_count += n
+
+        def _beat(name: str) -> None:
+            # `sup` is bound later in run(); closures resolve it at call time
+            if sup is not None:
+                sup.beat(name)
+
+        def _round_over_active() -> int:
+            # The round runs over the LIVE planes only. It is kernel dispatch,
+            # so it runs outside _state_lock: capture the cohort and the
+            # algorithm state under the lock, run the round on this thread's
+            # stream, then publish only if neither moved meanwhile. A
+            # discarded round is harmless: the next one syncs fresher planes.
+            with self._state_lock:
+                epoch = self.membership.epoch
+                ids = self.membership.active_ids()
+                if ids.size == 0:
+                    return 0
+                state_in = self.algo_state
+                sub_in = [self.w[j] for j in ids]
+            sub = [streams.consume(p) for p in sub_in]
+            new_state, n = self._shadow_round(sub, streams.consume(state_in))
+            landed = streams.record(dev)  # after the round's last write
+            with self._state_lock:
+                if self.membership.epoch != epoch or self.algo_state is not state_in:
+                    return 0  # membership/algo state moved under the round
+                self.algo_state = streams.Published(new_state, landed)
+                for k, j in enumerate(ids):
+                    self.w[j] = streams.Published(sub[k], landed)
+                return n
+
+        def _fr_ready_locked() -> bool:  # holds-lock: _fr_cond
+            regs = [j for j in range(self.R) if self._fr_registered[j]]
+            return bool(regs) and all(self._fr_arrived[j] for j in regs)
+
+        def _fr_deregister(i: int) -> None:
+            with self._fr_cond:
+                self._fr_registered[i] = False
+                self._fr_cond.notify_all()
+
+        def _fr_register(i: int) -> None:
+            # only a live thread may rejoin the barrier
+            with self._fr_cond:
+                if self._alive[i] and not self._fr_registered[i]:
+                    self._fr_registered[i] = True
+                    self._fr_arrived[i] = False
+                self._fr_cond.notify_all()
+
+        def _fr_sync_point(i: int) -> None:
+            run_round = False
+            with self._fr_cond:
+                if not self._fr_registered[i]:
+                    return
+                gen_ = self._fr_gen
+                self._fr_arrived[i] = True
+                # wait until every REGISTERED slot arrived and no elected
+                # leader is still mid-round for this generation
+                while (self._fr_gen == gen_ and self._fr_registered[i]
+                       and not (_fr_ready_locked() and self._fr_leader is None)):
+                    self._fr_cond.wait(timeout=0.05)
+                    _beat(f"trainer-{i}")  # parked at the barrier is not a stall
+                    if self._fr_gen == gen_ and self._fr_registered[i]:
+                        self._fr_arrived[i] = True
+                if self._fr_gen == gen_ and not self._fr_registered[i]:
+                    self._fr_arrived[i] = False
+                    self._fr_cond.notify_all()
+                    return
+                if self._fr_gen == gen_:
+                    # every registered slot is here: this thread is elected
+                    # leader and runs the round for the whole cohort, on its
+                    # own stream, outside the condition
+                    self._fr_leader = i
+                    run_round = True
+            if not run_round:
+                return
+            n = 0
+            try:
+                n = _round_over_active()
+            finally:
+                # the generation MUST advance even if the round raised
+                with self._fr_cond:
+                    for j in range(self.R):
+                        self._fr_arrived[j] = False
+                    self._fr_leader = None
+                    self._fr_gen += 1
+                    self._fr_cond.notify_all()
+            if n:
+                _add_syncs(n)
+
+        def trainer(i: int):
+            try:
+                with streams.on(trainer_streams[i]):
+                    _trainer_body(i)
+            except BaseException as e:
+                # a dying trainer must not die silently: capture with slot
+                # provenance (re-raised after join) and record the failure
+                with self._state_lock:
+                    self._trainer_excs.append((i, e))
+                    if self.membership.status(i) != "dead":
+                        self.membership.fail(i, reason=f"exception: {type(e).__name__}: {e}")
+                        with streams.on(trainer_streams[i]):
+                            self._dispatch_on_leave(i)
+            finally:
+                with self._state_lock:
+                    self._alive[i] = False
+                if fr_static:
+                    _fr_deregister(i)
+                if sup is not None:
+                    sup.deregister(f"trainer-{i}")
+                if i in initial_active:
+                    with ex_lock:
+                        self._initial_running -= 1
+
+        def _trainer_body(i: int):
+            n_iters = iters_per_trainer
+            # the initial optimizer state was made on the main thread's stream
+            streams.consume(streams.Published(self.opt_states[i], init_event))
+            if i in self.fault.join_at:
+                target = self.fault.join_at[i]
+                while _progress() < target:
+                    if _progress() >= iters_per_trainer or self._initial_running == 0:
+                        return  # cohort finished (or all crashed) before the join point
+                    _beat(f"trainer-{i}")  # waiting to join is not a stall
+                    time.sleep(0.001)
+                with self._state_lock:
+                    self._admit_slot(i)
+                if fr_static:
+                    _fr_register(i)
+                n_iters = max(iters_per_trainer - target, 1)
+            t_start = time.perf_counter()
+            sleep_s = self.fault.straggler_sleep_s.get(i, 0.0)
+            sleep_until = self.fault.straggler_until.get(i)
+            crash = self.fault.crash_at.get(i)
+            boom = self.fault.raise_at.get(i)
+            for it in range(n_iters):
+                _beat(f"trainer-{i}")
+                if boom is not None and it >= boom:
+                    raise RuntimeError(f"injected trainer fault at iteration {it}")
+                if crash is not None and it >= crash:
+                    with self._state_lock:
+                        if self.membership.status(i) != "dead":
+                            self.membership.fail(i)
+                            self._dispatch_on_leave(i)
+                    if fr_static:
+                        _fr_deregister(i)
+                    break
+                t_busy = time.perf_counter()
+                if sleep_s and (sleep_until is None or it < sleep_until):
+                    time.sleep(sleep_s)  # injected degradation
+                batch = ctr.gen_batch(self.cfg, self.teacher, self.seed + i, it, self.B)
+                # Lock-free read of the shared per-PS tables (Hogwild).
+                pooled = self.emb.lookup(batch["sparse"])
+                w, opt_state, loss, g_pooled = self._train_dense(
+                    streams.consume(self.w[i]), self.opt_states[i], pooled, batch)
+                self.w[i] = streams.publish(w)
+                self.opt_states[i] = opt_state
+                # Lock-free in-place write PER SHARD: writers to different
+                # PSs proceed independently; writers to the same PS race row
+                # by row (the Hogwild property). A dead slot keeps its
+                # private state but does not write the shared tables.
+                is_member = self.membership.status(i) == "active"
+                if is_member:
+                    for s in range(self.n_emb_shards):
+                        self.emb.try_update(s, self._emb_updates[s], batch["sparse"], g_pooled)
+                lv = float(loss)  # waits for this trainer's stream only
+                losses[i].append(lv)
+                self.iter_count[i] = it + 1
+                self.slot_eps.tick(i, time.perf_counter() - t_busy)
+                self.slot_eps.add(i, self.B)
+                if is_member:
+                    with ex_lock:
+                        self.examples += self.B
+                        self.eps_meter.add(self.B)
+                if fr_static and (it + 1) % self.sync_cfg.gap == 0:
+                    _fr_sync_point(i)
+            trainer_wall[i] = time.perf_counter() - t_start
+
+        def _shadow_body(gen_: int):
+            # One incarnation of the shadow loop. A restarted incarnation
+            # resumes rounds against the LIVE membership state; ``gen_`` is the
+            # supervisor's generation token at spawn, so a stalled zombie
+            # whose replacement already runs stands down.
+            while not self.done.is_set():
+                if sup is not None and sup.generation("shadow") != gen_:
+                    return  # fenced out: a replacement owns the rounds now
+                r = self._shadow_rounds
+                if (self.fault.sync_crash_at is not None and r >= self.fault.sync_crash_at
+                        and self._sync_crash_t is None):
+                    self._sync_crash_t = time.perf_counter()
+                    raise RuntimeError(f"injected sync-thread crash at round {r}")
+                if (self.fault.sync_stall_at is not None and r >= self.fault.sync_stall_at
+                        and not self._sync_stalled):
+                    # wedge WITHOUT beating: the supervisor must detect the
+                    # stale heartbeat, fence this incarnation, and restart
+                    self._sync_stalled = True
+                    t_end = time.perf_counter() + self.fault.sync_stall_s
+                    while time.perf_counter() < t_end and not self.done.is_set():
+                        time.sleep(0.01)
+                    continue  # the generation check above retires the zombie
+                _beat("shadow")
+                # One algorithm-owned background round over the live planes:
+                # landings interpolate into the CURRENT state while trainers
+                # keep moving (paper §3.3).
+                n = _round_over_active()
+                if n:
+                    _add_syncs(n)
+                else:
+                    time.sleep(0.001)
+                self._shadow_rounds = r + 1
+                # PS snapshots ride the shadow cadence (copies on this stream)
+                if self._shadow_rounds % self.ps_snapshot_every == 0:
+                    self.emb.snapshot_all()
+                if self.sync_sleep_s:
+                    time.sleep(self.sync_sleep_s)
+
+        def shadow(gen_: int = 0):
+            try:
+                with streams.on(shadow_stream):
+                    _shadow_body(gen_)
+            except BaseException as e:
+                # die quietly: the supervisor's death detection (and the
+                # restart it triggers) IS the recovery path
+                self._sync_excs.append(e)
+
+        def _restart_shadow() -> threading.Thread:
+            # called by the supervisor after backoff; the generation token
+            # was already bumped, fencing any stalled zombie
+            with self._sync_lock:
+                self._sync_count_at_restart.append(self.sync_count)
+            gen_ = sup.generation("shadow")
+            self.membership.note(
+                "sync_restart", -1,
+                f"shadow thread restarted (attempt {len(self._sync_count_at_restart)}, "
+                f"generation {gen_})")
+            t = threading.Thread(target=shadow, args=(gen_,), daemon=True)
+            t.start()
+            return t
+
+        def _sync_give_up(name: str) -> None:
+            # degradation ladder, last rung: training keeps running locally,
+            # and run() forces one final FOREGROUND sync at shutdown
+            self._sync_degraded = True
+            self.membership.note(
+                "degraded", -1,
+                "sync engine degraded: restart budget exhausted; training "
+                "continues locally, final foreground sync at shutdown")
+
+        def _supervision_tick() -> None:
+            with streams.on(tick_stream):
+                _tick_body()
+
+        def _tick_body() -> None:
+            # PS chaos injection + timed recovery ride the watch loop
+            if fr_static:
+                # no shadow thread: PS snapshots take the watch-loop cadence
+                self._tick_count += 1
+                if self._tick_count % 10 == 0:
+                    self.emb.snapshot_all()
+            for s, at in self.fault.ps_fail_at.items():
+                if s not in self._ps_injected and _progress() >= at:
+                    self._ps_injected.add(s)
+                    self.emb.fail_shard(s, reason=f"injected PS failure at iteration {at}")
+                    self.membership.note(
+                        "ps_fail", -1,
+                        f"embedding shard {s} down: live state lost, serving "
+                        f"snapshot reads, dropping writes after retry")
+            now = time.perf_counter()
+            for s in list(self.emb.failed_at):
+                t_fail = self.emb.failed_at.get(s)
+                if t_fail is not None and now - t_fail >= self.fault.ps_recover_after_s:
+                    self.emb.recover_shard(
+                        s, reason=f"rehydrated from snapshot after {now - t_fail:.2f}s down")
+                    self.membership.note("ps_recover", -1,
+                                         f"embedding shard {s} rejoined the routing plan")
+
+        sup = Supervisor(self.supervisor_config, tick=_supervision_tick) if self.supervise else None
+        self.supervisor = sup
+        threads = [threading.Thread(target=trainer, args=(i,)) for i in range(self.R)]
+        shadow_t = None if fr_static else threading.Thread(target=shadow, args=(0,), daemon=True)
+        # register BEFORE starting anything: a fast-finishing thread must
+        # never race its own registration (it deregisters itself on exit)
+        if sup is not None:
+            for i, t in enumerate(threads):
+                sup.register(f"trainer-{i}", t)  # watch-only
+            if shadow_t is not None:
+                sup.register("shadow", shadow_t, restart=_restart_shadow,
+                             on_give_up=_sync_give_up)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        if shadow_t is not None:
+            shadow_t.start()
+        if sup is not None:
+            sup.start()
+        for t in threads:
+            t.join()
+        self.done.set()
+        sync_restarts = 0
+        if sup is not None:
+            sync_restarts = sup.restarts("shadow")
+            cur = sup.thread("shadow")
+            if cur is not None:
+                shadow_t = cur  # join the CURRENT incarnation, not gen 0
+            # clean shutdown: stop watching first, or the supervisor would
+            # read the loops' clean exits as deaths
+            sup.deregister("shadow")
+            sup.stop()
+        if shadow_t is not None:
+            shadow_t.join(timeout=5.0)
+            if shadow_t.is_alive():
+                warnings.warn(
+                    "shadow thread failed to exit within 5s at shutdown "
+                    "(sync engine wedged?); proceeding: the returned state "
+                    "may race one final background round", RuntimeWarning)
+        with streams.on(tick_stream):
+            # rehydrate any still-down PS so the returned packed state is the
+            # best surviving copy and a subsequent run starts healthy
+            for s in self.emb.down_shards():
+                self.emb.recover_shard(s, reason="shutdown rehydrate")
+                self.membership.note("ps_recover", -1,
+                                     f"embedding shard {s} rehydrated at shutdown")
+            final_fg_sync = False
+            if self._sync_degraded and self.membership.active_ids().size > 0:
+                # degradation ladder's last rung: one FOREGROUND sync
+                n = _round_over_active()
+                if n:
+                    _add_syncs(n)
+                    final_fg_sync = True
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if self._trainer_excs:
+            i, e = self._trainer_excs[0]
+            others = len(self._trainer_excs) - 1
+            raise RuntimeError(
+                f"trainer thread (slot {i}) died with {type(e).__name__}: {e}"
+                + (f"; {others} more trainer exception(s) captured" if others else "")) from e
+        total_iters = sum(self.iter_count)
+        planes = [streams.consume(p) for p in self.w]
+        w_out = [self.flat.unpack(p) for p in planes] if self.engine == "flat" else planes
+        return {
+            "eps": self.examples / wall,
+            # rate over the trailing window: after a crash, the survivors' pace
+            "eps_window": self.eps_meter.eps,
+            "wall_s": wall,
+            "train_loss": [float(np.mean(l[-50:])) if l else float("nan") for l in losses],
+            "sync_count": self.sync_count,
+            "avg_sync_gap": total_iters / max(self.sync_count, 1),
+            "per_trainer_eps": [
+                self.B * self.iter_count[i] / trainer_wall[i]
+                if trainer_wall[i] > 0 and self.iter_count[i] > 0 else 0.0
+                for i in range(self.R)],
+            # intrinsic (busy-clock) pace per slot; barrier waits excluded
+            "per_trainer_eps_busy": [
+                self.B * self.iter_count[i] / self.slot_eps.busy(i)
+                if self.slot_eps.busy(i) > 0 else 0.0
+                for i in range(self.R)],
+            "iter_count": list(self.iter_count),
+            "membership_events": list(self.membership.events),
+            "policy_transitions": [],
+            "supervision_events": list(sup.events) if sup is not None else [],
+            "shard_events": list(self.emb.events),
+            "dropped_updates": list(self.emb.dropped_updates),
+            "stale_lookups": list(self.emb.stale_lookups),
+            "cache_stats": {},
+            "pipeline_stats": {},
+            "mode": self._mode,
+            "mode_transitions": [],
+            "sync_rounds": self._shadow_rounds,
+            "sync_restarts": sync_restarts,
+            "sync_count_at_restart": list(self._sync_count_at_restart),
+            "sync_degraded": self._sync_degraded,
+            "final_foreground_sync": final_fg_sync,
+            "t_start": t0,
+            "w": w_out,
+            # Engine-independent packed view of the per-PS states.
+            "emb_state": self.emb.to_packed(),
+        }

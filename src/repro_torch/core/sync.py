@@ -27,6 +27,19 @@ def replica_mean(stack: Tree) -> Tree:
     return T.map(lambda x: x.float().mean(0), stack)
 
 
+def masked_replica_mean(stack: Tree, active) -> Tree:
+    """Mean over only the ACTIVE replicas (the elastic-membership
+    denominator: dead slots contribute nothing, the mean divides by the live
+    count). ``active``: (R,) bool."""
+    def mean(x):
+        m = torch.as_tensor(active, dtype=torch.bool, device=x.device)
+        m = m.reshape((-1,) + (1,) * (x.dim() - 1))
+        cnt = max(float(m.sum()), 1.0)
+        return torch.where(m, x.float(), 0.0).sum(0) / cnt
+
+    return T.map(mean, stack)
+
+
 def tree_slice(stack: Tree, i) -> Tree:
     return T.map(lambda x: x[i], stack)
 

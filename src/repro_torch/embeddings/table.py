@@ -6,11 +6,13 @@ Adagrad accumulators beside it (paper §3.2). Forward (``lookup``) goes through
 the embedding-bag kernel and the backward (``sparse_adagrad_update_fused``)
 through the sparse-Adagrad kernel, which updates the tables in place.
 ``lookup_ref`` / ``sparse_adagrad_update`` are the plain oracles.
+``bin_pack`` / ``lookup_costs`` are the paper's load balancing of tables
+across embedding PSs (embeddings/shards.py).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,3 +91,23 @@ def sparse_adagrad_update_fused(state: Params, spec: TableSpec, idx: torch.Tenso
     g = g_pooled.reshape(-1, g_pooled.shape[-1])
     sparse_adagrad_op(state["table"], state["acc"], bags, g, lr=lr, eps=eps)
     return state
+
+
+def bin_pack(costs: Sequence[float], n_bins: int) -> List[List[int]]:
+    """Greedy LPT (longest-processing-time) bin packing: the paper's strategy for
+    distributing embedding lookup cost across embedding PSs (§3.1)."""
+    order = np.argsort(costs)[::-1]
+    loads = np.zeros(n_bins)
+    bins: List[List[int]] = [[] for _ in range(n_bins)]
+    for i in order:
+        b = int(np.argmin(loads))
+        bins[b].append(int(i))
+        loads[b] += costs[i]
+    return bins
+
+
+def lookup_costs(spec: TableSpec, batch_size: int) -> np.ndarray:
+    """Profiled-cost model: lookups dominate; cost ~ batch * multi_hot * dim,
+    identical per feature here, plus a memory-residency term ~ rows."""
+    per_lookup = batch_size * spec.multi_hot * spec.dim
+    return np.array([per_lookup + 1e-3 * s * spec.dim for s in spec.sizes])

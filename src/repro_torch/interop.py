@@ -7,13 +7,14 @@ tree packs into the same flat bytes (core/flatspace.py).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from repro_torch import tree as T
 from repro_torch.core.runners import SimState
+from repro_torch.embeddings import shards
 
 Tree = Any
 
@@ -42,6 +43,13 @@ def sim_state_from_numpy(w_stack: Tree, opt_stack: Tree, emb_state: Dict[str, An
     return SimState(dense_from_numpy(w_stack, device), dense_from_numpy(opt_stack, device),
                     tables_from_numpy(emb_state, device), dense_from_numpy(algo_state, device),
                     int(step))
+
+
+def shard_states_from_numpy(plan: shards.ShardPlan, packed_state: Dict[str, Any],
+                            device="cpu") -> List[Dict[str, torch.Tensor]]:
+    """A packed {"table", "acc"} state -> the port's per-shard states, split
+    by ``plan`` as ``EmbeddingShards.init`` splits the tables it draws."""
+    return shards.shard_states(plan, tables_from_numpy(packed_state, device))
 
 
 def tree_to_numpy(tree: Tree) -> Tree:

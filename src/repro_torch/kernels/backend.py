@@ -9,6 +9,11 @@ with a plain C interface. It is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``kernels/_build/`` (named by the source's hash, so an
 edited source is rebuilt) and loaded with ``ctypes``. The build happens at
 first use; ``build`` compiles several sources at once, one ``nvcc`` each.
+
+Threads: trainer threads may reach their first kernel at the same time, so
+``build``, ``load`` and ``c_function`` run under one module lock (each
+library is built and loaded once per process), and ``count_launch`` bumps a
+wrapper's launch counter under a lock of its own, so counts stay exact.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
@@ -30,6 +36,9 @@ NVCC_FLAGS = [
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
+# Re-entrant: ``load`` calls ``build`` and ``c_function`` calls ``load``.
+_BUILD_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -69,13 +78,18 @@ def build(names: Iterable[str]) -> List[str]:
     Returns the names that were compiled. Raises with the compiler's output
     if any build fails. The compiler's report (registers, spills) is kept
     beside each library as ``<lib>.log``."""
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> List[str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
     for name in names:
         lib = library_path(name)
         if os.path.exists(lib):
             continue
-        tmp = f"{lib}.{os.getpid()}.tmp"
+        tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
         p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs.append((name, lib, tmp, p))
@@ -95,24 +109,33 @@ def build(names: Iterable[str]) -> List[str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel's library, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = _LIBS[name] = ctypes.CDLL(library_path(name))
-    return lib
+    with _BUILD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = _LIBS[name] = ctypes.CDLL(library_path(name))
+        return lib
 
 
 def c_function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """A C entry point of kernel ``name`` with its argument types set (pointers
     and the stream as ``c_void_p``, so they are not cut to 32 bits). Every
     entry point returns ``cudaGetLastError()`` after its launch."""
-    fn = _FNS.get(symbol)
-    if fn is None:
-        fn = getattr(load(name), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _FNS[symbol] = fn
-    return fn
+    with _BUILD_LOCK:
+        fn = _FNS.get(symbol)
+        if fn is None:
+            fn = getattr(load(name), symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _FNS[symbol] = fn
+        return fn
+
+
+def count_launch(op) -> None:
+    """One more launch of ``op``'s kernel. ``op.launches`` stays a plain int
+    (callers reset it to 0), and the increment is exact under threads."""
+    with _COUNT_LOCK:
+        op.launches += 1
 
 
 def check_launch(symbol: str, err: int) -> None:

@@ -1,7 +1,16 @@
-"""Plain PyTorch version of the EASGD round kernel (twin of the JAX ref).
+"""Plain PyTorch versions of the EASGD kernels (twins of the JAX refs).
 
-Updates ``stack`` and ``w_ps`` in place, as the kernel does."""
+``easgd_round_ref`` updates ``stack`` and ``w_ps`` in place, as its kernel
+does; ``easgd_update_ref`` returns two new planes, as its kernel does."""
 import torch
+
+
+def easgd_update_ref(w_ps: torch.Tensor, w_i: torch.Tensor, alpha: float):
+    ps = w_ps.float()
+    wi = w_i.float()
+    new_ps = (1 - alpha) * ps + alpha * wi
+    new_wi = (1 - alpha) * wi + alpha * new_ps
+    return new_ps.to(w_ps.dtype), new_wi.to(w_i.dtype)
 
 
 def easgd_round_ref(stack: torch.Tensor, w_ps: torch.Tensor, snapshot: torch.Tensor,

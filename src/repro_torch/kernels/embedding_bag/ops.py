@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import backend
 from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
@@ -17,7 +18,7 @@ def embedding_bag_op(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     flat_idx = idx.reshape(-1, idx.shape[-1])
     if table.is_cuda:
         out = embedding_bag(table, flat_idx.to(torch.int32).contiguous())
-        embedding_bag_op.launches += 1
+        backend.count_launch(embedding_bag_op)
     else:
         out = embedding_bag_ref(table, flat_idx)
     return out.reshape(*idx.shape[:-1], table.shape[-1])

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import backend
 from repro_torch.kernels.sparse_adagrad.ref import sparse_adagrad_ref
 from repro_torch.kernels.sparse_adagrad.sparse_adagrad import sparse_adagrad_rows
 
@@ -26,7 +27,7 @@ def sparse_adagrad_op(table: torch.Tensor, acc: torch.Tensor, idx: torch.Tensor,
     rows, order = torch.sort(flat_idx.reshape(-1).to(torch.int32), stable=True)
     bags = torch.div(order, m, rounding_mode="floor").to(torch.int32)
     sparse_adagrad_rows(table, acc, rows, bags, g.float().contiguous(), lr=lr, eps=eps)
-    sparse_adagrad_op.launches += 1
+    backend.count_launch(sparse_adagrad_op)
     return table, acc
 
 

@@ -1,14 +1,19 @@
 """Training launcher for the port: ``dlrm`` runs the deterministic
 ``HogwildSim`` (n trainers x m Hogwild threads on synthetic CTR, shadow or
-fixed-rate sync) on the CUDA card unless ``--device cpu`` is given.
+fixed-rate sync), or with ``--threaded`` the real-thread
+``ThreadedShadowRunner`` (the paper's Algorithm 1: trainer threads on
+plan-sharded embedding PSs, a background shadow thread, supervision and the
+fault-injection harness), on the CUDA card unless ``--device cpu`` is given.
 
   python -m repro_torch.launch.train dlrm --full --iters 50
+  python -m repro_torch.launch.train dlrm --threaded --full --iters 50
   python -m repro_torch.launch.train dlrm --device cpu --tiny --iters 20
+  python -m repro_torch.launch.train dlrm --threaded --device cpu --tiny \
+      --trainers 2 --iters 25 --batch-size 32 --crash-at 1:10 --ps-fail-at 0:5
 
 The flags are the JAX launcher's (``repro/launch/train.py dlrm``). Those of
-parts not yet ported (``--threaded`` and its fault injections, the cache,
-pipelining, membership schedules, checkpoints, ``--auto-*``) raise
-``NotImplementedError``.
+parts not yet ported (the cache, pipelining, membership schedules,
+checkpoints, ``--auto-*``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,13 +28,23 @@ from repro_torch import optim
 from repro_torch.configs import dlrm_ctr
 from repro_torch.core import algorithms
 from repro_torch.core.elp import elp
-from repro_torch.core.runners import HogwildSim
+from repro_torch.core.membership import FaultSpec
+from repro_torch.core.runners import HogwildSim, ThreadedShadowRunner
 from repro_torch.core.sync import SyncConfig
+
+
+def _parse_slot_map(spec, cast):
+    """ "slot:value,slot:value" -> {int: cast}."""
+    out = {}
+    if spec:
+        for part in spec.split(","):
+            slot, val = part.split(":")
+            out[int(slot)] = cast(val)
+    return out
 
 
 def _unported(args) -> list:
     flags = {
-        "--threaded": args.threaded,
         "--cache-rows": args.cache_rows is not None,
         "--pipeline-depth > 1": args.pipeline_depth > 1,
         "--membership-schedule": args.membership_schedule is not None,
@@ -37,23 +52,91 @@ def _unported(args) -> list:
         "--restore": args.restore is not None,
         "--auto-demote": args.auto_demote,
         "--auto-mode": args.auto_mode,
-        "--crash-at/--join-at/--straggler/--raise-at/--sync-crash-at/--sync-stall-at/"
-        "--ps-fail-at": any(v is not None for v in (
-            args.crash_at, args.join_at, args.straggler, args.straggler_until, args.raise_at,
-            args.sync_crash_at, args.sync_stall_at, args.ps_fail_at)),
     }
     return [name for name, on in flags.items() if on]
+
+
+def _check_flags(args) -> None:
+    """Contradictory or misplaced flags fail loudly, as in the JAX launcher."""
+    if args.auto_mode and args.mode is not None:
+        raise SystemExit(
+            "--auto-mode and --mode contradict: --auto-mode hands the "
+            f"shadow/fixed_rate choice to the ModeController, but --mode "
+            f"{args.mode} pins it. Drop --mode or drop --auto-mode.")
+    if args.straggler_until and not args.straggler:
+        raise SystemExit(
+            "--straggler-until without --straggler does nothing: "
+            "--straggler-until bounds the injected sleep that --straggler "
+            'declares, and no slot has one. Add --straggler "slot:seconds" or '
+            "drop --straggler-until.")
+    if args.pipeline_depth < 1:
+        raise SystemExit(f"--pipeline-depth must be >= 1, got {args.pipeline_depth}")
+    if args.auto_demote and not args.threaded:
+        raise SystemExit("--auto-demote requires --threaded")
+    if args.auto_mode and not args.threaded:
+        raise SystemExit("--auto-mode requires --threaded")
+    chaos = (args.sync_crash_at is not None or args.sync_stall_at is not None
+             or args.ps_fail_at or args.raise_at)
+    if chaos and not args.threaded:
+        raise SystemExit(
+            "--sync-crash-at/--sync-stall-at/--ps-fail-at/--raise-at are "
+            "chaos injections into the REAL threads; they require --threaded")
+
+
+def run_threaded(args, cfg, sync_cfg) -> dict:
+    fault = FaultSpec(
+        straggler_sleep_s=_parse_slot_map(args.straggler, float),
+        straggler_until=_parse_slot_map(args.straggler_until, int),
+        crash_at=_parse_slot_map(args.crash_at, int),
+        join_at=_parse_slot_map(args.join_at, int),
+        raise_at=_parse_slot_map(args.raise_at, int),
+        sync_crash_at=args.sync_crash_at,
+        sync_stall_at=args.sync_stall_at,
+        sync_stall_s=args.sync_stall_s,
+        ps_fail_at=_parse_slot_map(args.ps_fail_at, int),
+        ps_recover_after_s=args.ps_recover_after,
+    )
+    runner = ThreadedShadowRunner(
+        cfg, sync_cfg, n_trainers=args.trainers, batch_size=args.batch_size,
+        optimizer=optim.make(args.optimizer, args.lr), seed=args.seed,
+        sync_sleep_s=args.sync_sleep, fault_spec=fault, device=args.device)
+    print(f"DLRM {'tiny' if args.tiny else 'full'} threaded on {runner.device}: "
+          f"{cfg.n_sparse_features} sparse features, {cfg.n_embedding_rows:,} embedding rows "
+          f"on {runner.n_emb_shards} PSs {list(runner.plan.shard_rows)}; "
+          f"ELP = {elp(args.batch_size, 1, args.trainers):,}")
+    runner.warmup()
+    out = runner.run(args.iters)
+    print(f"EPS={out['eps']:.0f} (window {out['eps_window']:.0f})  "
+          f"avg_sync_gap={out['avg_sync_gap']:.2f} sync_count={out['sync_count']} "
+          f"rounds={out['sync_rounds']} iters/trainer={out['iter_count']} "
+          f"final train loss per trainer={[round(l, 4) for l in out['train_loss']]}")
+    if out["membership_events"]:
+        print("membership:", [(e.kind, e.slot) + ((e.reason,) if e.reason else ())
+                              for e in out["membership_events"]])
+    if out["supervision_events"]:
+        print("supervision:", [(e.kind, e.name, e.reason) for e in out["supervision_events"]])
+        print(f"  sync_restarts={out['sync_restarts']} degraded={out['sync_degraded']} "
+              f"final_foreground_sync={out['final_foreground_sync']}")
+    if out["shard_events"]:
+        print("embedding PS:", [(e.kind, e.shard) + ((e.reason,) if e.reason else ())
+                                for e in out["shard_events"]])
+        print(f"  dropped_updates={out['dropped_updates']} "
+              f"stale_lookups={out['stale_lookups']}")
+    return {k: v for k, v in out.items()
+            if k not in ("w", "emb_state", "membership_events", "supervision_events",
+                         "shard_events")}
 
 
 def run_dlrm(args) -> dict:
     unported = _unported(args)
     if unported:
         raise NotImplementedError(f"{', '.join(unported)}: not yet ported to repro_torch")
-    if args.pipeline_depth < 1:
-        raise SystemExit(f"--pipeline-depth must be >= 1, got {args.pipeline_depth}")
+    _check_flags(args)
     cfg = dlrm_ctr.tiny(embedding_dim=args.embedding_dim) if args.tiny else dlrm_ctr.CONFIG
     sync_cfg = SyncConfig(algo=args.algo, mode=args.mode or "shadow", gap=args.sync_gap,
                           alpha=args.alpha, delay=args.sync_delay)
+    if args.threaded:
+        return run_threaded(args, cfg, sync_cfg)
     sim = HogwildSim(cfg, sync_cfg, n_trainers=args.trainers, n_threads=args.threads,
                      batch_size=args.batch_size, optimizer=optim.make(args.optimizer, args.lr),
                      seed=args.seed, device=args.device)
@@ -96,11 +179,13 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--eval-batches", type=int, default=10)
     d.add_argument("--log-every", type=int, default=50)
     d.add_argument("--seed", type=int, default=0)
+    d.add_argument("--threaded", action="store_true",
+                   help="the real-thread runner (ThreadedShadowRunner)")
     # Flags of parts not yet ported: accepted as in the JAX launcher, then refused.
-    d.add_argument("--threaded", action="store_true")
     d.add_argument("--save", default=None)
     d.add_argument("--restore", default=None)
     d.add_argument("--membership-schedule", default=None)
+    # The threaded runner's fault-injection harness.
     for flag in ("--crash-at", "--join-at", "--straggler", "--straggler-until", "--raise-at",
                  "--ps-fail-at"):
         d.add_argument(flag, default=None)

@@ -3,12 +3,18 @@
 These need a CUDA card and nvcc, and skip elsewhere. Run them on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.easgd_update.ops import easgd_round_op  # noqa: E402
-from repro_torch.kernels.easgd_update.ref import easgd_round_ref  # noqa: E402
+from repro_torch import optim  # noqa: E402
+from repro_torch.configs import dlrm_ctr  # noqa: E402
+from repro_torch.core import algorithms, runners, streams, sync  # noqa: E402
+from repro_torch.core.flatspace import FlatSpace  # noqa: E402
+from repro_torch.kernels.easgd_update.ops import easgd_pair_flat_op, easgd_round_op  # noqa: E402
+from repro_torch.kernels.easgd_update.ref import easgd_round_ref, easgd_update_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_op  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.sparse_adagrad.ops import sparse_adagrad_op  # noqa: E402
@@ -80,3 +86,54 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     f = torch.tensor([0], dtype=torch.int32).cuda()
     with pytest.raises(ValueError, match="snapshot must be a copy"):
         easgd_round_op(stack, torch.randn((8, 128)).cuda(), stack[:1], f, 0.5)
+
+
+@pytest.mark.parametrize("n", [1, 256, 4096])
+def test_easgd_pair_kernel(gen, n):
+    ps = torch.randn((n, 128), generator=gen).cuda()
+    w = torch.randn((n, 128), generator=gen).cuda()
+    ps0, w0 = ps.clone(), w.clone()
+    before = easgd_pair_flat_op.launches
+    kp, kw = easgd_pair_flat_op(ps, w, 0.3)
+    assert easgd_pair_flat_op.launches == before + 1
+    rp, rw = easgd_update_ref(ps, w, 0.3)
+    torch.testing.assert_close(kp, rp, rtol=0, atol=1e-6)
+    torch.testing.assert_close(kw, rw, rtol=0, atol=1e-6)
+    assert torch.equal(ps, ps0) and torch.equal(w, w0)  # the inputs are only read
+    assert kp.data_ptr() not in (ps.data_ptr(), w.data_ptr())
+
+
+def test_publish_consume_fences_a_slow_producer(gen):
+    """A producer stream spins, then writes a plane; the consumer stream runs
+    the threaded round on it. Without the event wait the round would read
+    the plane before it is written."""
+    n = 4096
+    src = torch.randn((n, 128), generator=gen).cuda()
+    ps = torch.randn((n, 128), generator=gen).cuda()
+    fs = FlatSpace.from_tree({"x": torch.zeros((n * 128,))})
+    rnd = algorithms.get("easgd").make_shadow_round(sync.SyncConfig(alpha=0.5), fs)
+    producer, consumer = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(producer):
+        plane = torch.zeros_like(src)
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning before the write
+        plane.copy_(src)
+        pub = streams.publish(plane)
+    with torch.cuda.stream(consumer):
+        ws = [streams.consume(pub)]
+        new_ps, n_syncs = rnd(ws, ps)
+    torch.cuda.synchronize()
+    want_ps, want_w = easgd_update_ref(ps, src, 0.5)
+    assert n_syncs == 1
+    torch.testing.assert_close(new_ps, want_ps, rtol=0, atol=1e-6)
+    torch.testing.assert_close(ws[0], want_w, rtol=0, atol=1e-6)
+
+
+def test_tiny_threaded_run_on_the_card(gen):
+    r = runners.ThreadedShadowRunner(dlrm_ctr.tiny(), sync.SyncConfig(gap=3), n_trainers=2,
+                                     batch_size=32, optimizer=optim.adagrad(0.02), device="cuda")
+    r.warmup()
+    before = easgd_pair_flat_op.launches
+    out = r.run(10)
+    assert all(math.isfinite(x) for x in out["train_loss"]) and out["sync_count"] > 0
+    assert out["iter_count"] == [10, 10] and easgd_pair_flat_op.launches > before

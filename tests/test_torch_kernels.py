@@ -179,3 +179,177 @@ def test_cpu_wrappers_do_not_count_launches():
                    torch.tensor([1], dtype=torch.int32), 0.5)
     assert (embedding_bag_op.launches, sparse_adagrad_op.launches,
             easgd_round_op.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# K4 · EASGD pair exchange, and the threaded round built on it
+# ---------------------------------------------------------------------------
+
+from repro.core import algorithms as jalgorithms  # noqa: E402
+from repro.core import flatspace as jflatspace  # noqa: E402
+from repro.core import sync as jsync  # noqa: E402
+from repro.kernels.easgd_update.easgd_update import easgd_update as j_easgd_update  # noqa: E402
+from repro.kernels.easgd_update.ops import easgd_pair_flat_op as j_easgd_pair_flat_op  # noqa: E402
+from repro.kernels.easgd_update.ops import easgd_pair_op as j_easgd_pair_op  # noqa: E402
+from repro.kernels.easgd_update.ref import easgd_update_ref as j_easgd_update_ref  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
+from repro_torch.core import algorithms as talgorithms  # noqa: E402
+from repro_torch.core import flatspace as tflatspace  # noqa: E402
+from repro_torch.core import sync as tsync  # noqa: E402
+from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels.easgd_update.ops import easgd_pair_flat_op, easgd_pair_op  # noqa: E402
+from repro_torch.kernels.easgd_update.ref import easgd_update_ref  # noqa: E402
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("alpha", [0.5, 0.1, 1.0])
+def test_easgd_pair_matches_jax(n, alpha):
+    rng = np.random.default_rng(n + int(alpha * 10))
+    ps = rng.standard_normal((n, LANE)).astype(np.float32)
+    w = rng.standard_normal((n, LANE)).astype(np.float32)
+    j_ps, j_w = j_easgd_update(jnp.asarray(ps), jnp.asarray(w), alpha, block=256, interpret=True)
+    r_ps, r_w = j_easgd_update_ref(jnp.asarray(ps), jnp.asarray(w), alpha)
+    o_ps, o_w = j_easgd_pair_flat_op(jnp.asarray(ps), jnp.asarray(w), alpha)
+    tps, tw = _t(ps), _t(w)
+    for got in (easgd_update_ref(tps, tw, alpha), easgd_pair_flat_op(tps, tw, alpha)):
+        assert got[0] is not tps and got[1] is not tw  # out of place
+        for a, b in ((got[0], j_ps), (got[1], j_w), (got[0], r_ps), (got[1], r_w),
+                     (got[0], o_ps), (got[1], o_w)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    np.testing.assert_array_equal(tps.numpy(), ps)  # the inputs are left as they were
+    np.testing.assert_array_equal(tw.numpy(), w)
+
+
+def test_easgd_pair_op_over_trees_matches_jax():
+    rng = np.random.default_rng(7)
+    tree = {"a": rng.standard_normal((3, 5)).astype(np.float32),
+            "b": (rng.standard_normal((7,)).astype(np.float32),)}
+    other = T.map(lambda x: (x + 1.5).astype(np.float32), tree)
+    want = j_easgd_pair_op(jax.tree.map(jnp.asarray, tree), jax.tree.map(jnp.asarray, other), 0.3)
+    got = easgd_pair_op(T.map(_t, tree), T.map(_t, other), 0.3)
+    for a, b in zip(T.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def _planes(seed, n_rep, n_rows=256):
+    rng = np.random.default_rng(seed)
+    ws = [rng.standard_normal((n_rows, LANE)).astype(np.float32) for _ in range(n_rep)]
+    return ws, rng.standard_normal((n_rows, LANE)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_rep", [1, 3])
+def test_make_shadow_round_flat_matches_jax(n_rep):
+    ws, ps = _planes(n_rep, n_rep)
+    jfs = jflatspace.FlatSpace.from_tree({"x": jnp.zeros((256 * LANE,))})
+    tfs = tflatspace.FlatSpace.from_tree({"x": torch.zeros((256 * LANE,))})
+    j_ws = [jnp.asarray(w) for w in ws]
+    j_state, jn = jalgorithms.get("easgd").make_shadow_round(
+        jsync.SyncConfig(alpha=0.4), jfs)(j_ws, jnp.asarray(ps))
+    t_ws = [_t(w) for w in ws]
+    t_state, tn = talgorithms.get("easgd").make_shadow_round(
+        tsync.SyncConfig(alpha=0.4), tfs)(t_ws, _t(ps))
+    assert tn == jn == n_rep
+    np.testing.assert_allclose(t_state.numpy(), np.asarray(j_state), **TOL)
+    for a, b in zip(t_ws, j_ws):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+@pytest.mark.parametrize("n_rep", [1, 3])
+def test_make_shadow_round_pytree_matches_jax(n_rep):
+    rng = np.random.default_rng(40 + n_rep)
+    trees = [{"w": rng.standard_normal((6, 4)).astype(np.float32),
+              "b": rng.standard_normal((4,)).astype(np.float32)} for _ in range(n_rep + 1)]
+    j_ws = [jax.tree.map(jnp.asarray, t) for t in trees[:-1]]
+    j_state, jn = jalgorithms.get("easgd").make_shadow_round(
+        jsync.SyncConfig(alpha=0.4, engine="pytree"), None)(j_ws, jax.tree.map(jnp.asarray,
+                                                                               trees[-1]))
+    t_ws = [T.map(_t, t) for t in trees[:-1]]
+    t_state, tn = talgorithms.get("easgd").make_shadow_round(
+        tsync.SyncConfig(alpha=0.4, engine="pytree"), None)(t_ws, T.map(_t, trees[-1]))
+    assert tn == jn == n_rep
+    for a, b in zip(T.leaves([t_state] + t_ws), jax.tree.leaves([j_state] + j_ws)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def test_base_shadow_round_and_join_hooks_match_jax():
+    """The base class's fallback round (stack -> land -> slice) and the
+    pytree join bootstrap (live mean), through an oracle-only algorithm."""
+    rng = np.random.default_rng(3)
+    ws, ps = _planes(3, 3)
+    tfs = tflatspace.FlatSpace.from_tree({"x": torch.zeros((256 * LANE,))})
+    base = talgorithms.SyncAlgorithm()
+    base.land = talgorithms.EASGD().land
+    t_ws = [_t(w) for w in ws]
+    t_state, n = base.make_shadow_round(tsync.SyncConfig(alpha=0.4), tfs)(t_ws, tfs.unpack(_t(ps)))
+    want_stack, want_ps = tsync.easgd_round(torch.stack([_t(w) for w in ws]), _t(ps), 0.4)
+    assert n == 1
+    np.testing.assert_allclose(torch.stack(t_ws).numpy(), want_stack.numpy(), **TOL)
+    stack = rng.standard_normal((4, 5)).astype(np.float32)
+    active = np.array([True, False, True, False])
+    j_new, _ = jalgorithms.SyncAlgorithm.on_join(None, jnp.asarray(stack), 3, None, active, None)
+    t_new, _ = talgorithms.SyncAlgorithm.on_join(None, _t(stack), 3, None, active, None)
+    np.testing.assert_allclose(t_new.numpy(), np.asarray(j_new), **TOL)
+    with pytest.raises(NotImplementedError, match="replica_mean_rows"):
+        base.on_join_flat(torch.stack(t_ws), 2, None, active[:3], None, tfs)
+
+
+def test_easgd_join_flat_adopts_the_ps_plane():
+    ws, ps = _planes(5, 3)
+    buf = torch.stack([_t(w) for w in ws])
+    new, state = talgorithms.get("easgd").on_join_flat(buf, 2, _t(ps), [True, True, False],
+                                                       None, None)
+    assert torch.equal(new[2], _t(ps)) and torch.equal(new[:2], buf[:2]) and state is not None
+    assert torch.equal(buf[2], _t(ws[2]))  # out of place
+
+
+def test_launch_counters_are_exact_under_threads():
+    import sys
+    import threading
+
+    def op():
+        pass
+
+    op.launches = 0
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [backend.count_launch(op) for _ in range(20_000)])
+                   for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert op.launches == 4 * 20_000
+
+
+def test_concurrent_first_loads_build_once(monkeypatch):
+    import threading
+    import time
+
+    calls = []
+
+    def fake_build(names):
+        calls.append(list(names))
+        time.sleep(0.05)  # a slow nvcc: the other threads arrive meanwhile
+        return list(names)
+
+    monkeypatch.setattr(backend, "build", fake_build)
+    monkeypatch.setattr(backend, "ctypes", type("C", (), {"CDLL": staticmethod(lambda p: object())}))
+    monkeypatch.setattr(backend, "_LIBS", {})
+    barrier = threading.Barrier(4)
+    libs = []
+
+    def first_call():
+        barrier.wait()
+        libs.append(backend.load("easgd_update"))
+
+    threads = [threading.Thread(target=first_call) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == [["easgd_update"]] and len(libs) == 4 and len({id(x) for x in libs}) == 1

@@ -87,13 +87,32 @@ def test_sim_refuses_unported_options(option):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--threaded"], ["--cache-rows", "100"], ["--pipeline-depth", "2"],
+    ["--threaded", "--cache-rows", "100"], ["--cache-rows", "100"], ["--pipeline-depth", "2"],
     ["--membership-schedule", "fail@2:1"], ["--save", "ck"], ["--restore", "ck"],
-    ["--auto-demote"], ["--auto-mode"], ["--crash-at", "1:2"],
+    ["--auto-demote"], ["--auto-mode"], ["--threaded", "--auto-demote"],
 ])
 def test_cli_refuses_unported_flags(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.main(["dlrm", "--device", "cpu", "--iters", "1", *flags])
+
+
+def test_threaded_cli_without_device_needs_the_card(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["dlrm", "--threaded", "--tiny", "--iters", "1"])
+
+
+def test_chaos_flags_need_threaded():
+    with pytest.raises(SystemExit, match="require --threaded"):
+        train.main(["dlrm", "--device", "cpu", "--iters", "1", "--ps-fail-at", "0:1"])
+
+
+def test_threaded_cli_runs_end_to_end_on_cpu(capsys):
+    out = train.main(["dlrm", "--threaded", "--device", "cpu", "--tiny", "--trainers", "2",
+                      "--iters", "4", "--batch-size", "16", "--crash-at", "1:2"])
+    assert out["iter_count"] == [4, 2] and out["sync_count"] > 0
+    assert all(v == v for v in out["train_loss"])
+    text = capsys.readouterr().out
+    assert "DLRM tiny threaded on cpu" in text and "membership: [('fail', 1)]" in text
 
 
 def test_cli_runs_end_to_end_on_cpu(capsys):

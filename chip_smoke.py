@@ -14,14 +14,23 @@ Phases, each of which asserts (any failure exits non-zero):
      B=128, through ``HogwildSim``; then evaluation, a short fixed_rate run
      (every replica fires at once), and a tiny-config run on the card held
      against the same run on the CPU;
+     then the same path under MA, BMUF and Gossip (launch counts exact
+     against the run's own shadow schedule), and each of them with elastic
+     membership (a slot fails and rejoins, a spare slot joins: the *_rows
+     kernels run and the dead slot stays bitwise frozen);
   5. the threaded path: ``ThreadedShadowRunner`` at the same width, R=4
      trainer threads x B=128 on 4 plan-sharded embedding PSs, shadow EASGD
      on the flat engine, the supervisor on, each thread on its own stream;
      exact launch counts, the device idle share of a profiled run, the cost
      of one PS snapshot; then a threaded fixed_rate run, and a tiny
-     one-trainer threaded run on the card held against the CPU's;
-  6. the kernel table as one JSON line, then the result line.
+     one-trainer threaded run on the card held against the CPU's; then the
+     threaded path under MA, BMUF and Gossip, and an MA run in which a
+     trainer joins (its bootstrap is the live mean, K5);
+  6. the tiny elastic runs of MA, BMUF and Gossip on the card held against
+     the CPU's;
+  7. the kernel table as one JSON line, then the result line.
 """
+import gc
 import json
 import math
 import os
@@ -30,7 +39,6 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("embedding_bag", "sparse_adagrad", "easgd_update")
 # Device-memory rate by card (NVIDIA data sheets); the bound of every kernel
 # here is bytes over this rate.
 MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12, "H200": 4.8e12}
@@ -39,12 +47,30 @@ R, M, B = 4, 4, 128
 TIMED_ITERS, WARM_ITERS = 20, 3
 THREADED_ITERS, PROFILED_ITERS = 40, 10  # per trainer thread
 N_SHARDS = 4
+ALGOS = ("ma", "bmuf", "gossip")
+ALGO_ITERS, ALGO_THREADED_ITERS = 20, 20
+# the elastic full-width runs: slot 1 fails and rejoins, a spare slot 4 joins
+ELASTIC_SCHED = ((3, "fail", 1), (6, "join", 1), (8, "join", 4))
+ELASTIC_ITERS = 12
+# the reference's schedule (tests/test_membership.py:242), for the tiny runs
+TINY_SCHED = ((5, "fail", 1), (9, "join", 1), (11, "join", 3))
+SYNC_TOL = 1e-6  # the same lerps; nvcc may contract a multiply-add into one FMA
 
-# the hand-written kernels' __global__ names, as the profiler reports them
-DEVICE_NAMES = {"embedding_bag": "embedding_bag_kernel",
-                "sparse_adagrad": "sparse_adagrad_rows_kernel",
-                "easgd_round": "easgd_round_kernel",
-                "easgd_pair": "easgd_pair_kernel"}
+# the hand-written kernels' __global__ names, as the profiler reports them,
+# by the source (kernels/<source>/csrc/<source>.cu) that must build each
+DEVICE_NAMES_BY_SOURCE = {
+    "embedding_bag": {"embedding_bag": "embedding_bag_kernel"},
+    "sparse_adagrad": {"sparse_adagrad": "sparse_adagrad_rows_kernel"},
+    "easgd_update": {"easgd_round": "easgd_round_kernel", "easgd_pair": "easgd_pair_kernel"},
+    "ma_update": {"replica_mean": "replica_mean_rows_kernel",
+                  "replica_mean_rows": "replica_mean_rows_kernel",
+                  "ma_update": "ma_pullback_rows_kernel",
+                  "ma_update_rows": "ma_pullback_rows_kernel"},
+    "bmuf_update": {"bmuf_update": "bmuf_rows_kernel", "bmuf_update_rows": "bmuf_rows_kernel"},
+    "gossip_update": {"gossip_pair": "gossip_pair_kernel", "gossip_round": "gossip_round_kernel"},
+}
+KERNELS = tuple(DEVICE_NAMES_BY_SOURCE)
+DEVICE_NAMES = {k: g for names in DEVICE_NAMES_BY_SOURCE.values() for k, g in names.items()}
 
 
 def emit(obj):
@@ -247,6 +273,229 @@ def check_kernels(torch, sim, st, mem_rate):
     return rows
 
 
+def sync_row(name, source, replaces, err, b, **times):
+    return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/{source}",
+                replaces=f"src/repro/kernels/{replaces}", max_abs_err=err, tol=SYNC_TOL,
+                bound_ms=b[0], bound_by=b[1], **times)
+
+
+def max_err(got, want):
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def one_launch(op, fn):
+    """Run ``fn`` (one call of the wrapper ``op``) and check that it launched
+    its kernel exactly once."""
+    before = op.launches
+    out = fn()
+    assert op.launches == before + 1, (op.__name__, op.launches - before)
+    return out
+
+
+def check_sync_kernels(torch, st, mem_rate):
+    """Phase 3, K5-K7: every entry point against its plain version on the
+    main path's (4, 4096, 128) flat buffer, with replicas that differ. Returns
+    {name: row} for the kernel table (launches filled later)."""
+    from repro_torch.kernels.bmuf_update.ops import bmuf_sync_op, bmuf_sync_rows_op
+    from repro_torch.kernels.bmuf_update.ref import bmuf_update_ref, bmuf_update_rows_ref
+    from repro_torch.kernels.gossip_update.ops import gossip_pair_flat_op, gossip_round_op
+    from repro_torch.kernels.gossip_update.ref import gossip_pair_ref, gossip_round_ref
+    from repro_torch.kernels.ma_update import ops as ma_ops
+    from repro_torch.kernels.ma_update import ref as ma_ref
+
+    gen = torch.Generator().manual_seed(2)
+    stack0 = st.w_stack + torch.randn(tuple(st.w_stack.shape), generator=gen).to("cuda") * 0.01
+    keep = stack0.clone()
+    R_, n, lanes = stack0.shape
+    plane = n * lanes * 4
+    elems = n * lanes
+
+    def i32(ids):
+        return torch.tensor(ids, dtype=torch.int32, device="cuda")
+
+    def emit_row(row, **extra):
+        emit({"phase": "kernel", **row, **extra})
+
+    rows = {}
+    # K5 · replica_mean (rows = all ids) and replica_mean_rows (live ids)
+    got = one_launch(ma_ops.replica_mean_op, lambda: ma_ops.replica_mean_op(stack0))
+    err = max_err([got], [ma_ref.replica_mean_ref(stack0)])
+    assert err <= SYNC_TOL and torch.equal(stack0, keep), ("replica_mean", err)
+    rows["replica_mean"] = sync_row(
+        "replica_mean", "ma_update/csrc/ma_update.cu", "ma_update/ma_update.py:60", err,
+        bound((R_ + 1) * plane + R_ * 4, R_ * elems, mem_rate),
+        **timings(torch, lambda: ma_ops.replica_mean_op(stack0),
+                  lambda: ma_ref.replica_mean_ref(stack0), DEVICE_NAMES["replica_mean"],
+                  lambda: torch.mean(stack0, 0)))
+    emit_row(rows["replica_mean"], rows=R_)
+    live = i32([0, 2, 3])
+    A = live.shape[0]
+    got = one_launch(ma_ops.replica_mean_rows_op, lambda: ma_ops.replica_mean_rows_op(stack0, live))
+    err = max_err([got], [ma_ref.replica_mean_rows_ref(stack0, live)])
+    assert err <= SYNC_TOL and torch.equal(stack0, keep), ("replica_mean_rows", err)
+    rows["replica_mean_rows"] = sync_row(
+        "replica_mean_rows", "ma_update/csrc/ma_update.cu", "ma_update/ma_update.py:108", err,
+        bound((A + 1) * plane + A * 4, A * elems, mem_rate),
+        **timings(torch, lambda: ma_ops.replica_mean_rows_op(stack0, live),
+                  lambda: ma_ref.replica_mean_rows_ref(stack0, live),
+                  DEVICE_NAMES["replica_mean_rows"]))
+    emit_row(rows["replica_mean_rows"], rows=[0, 2, 3])
+
+    # K5 · ma_update (every row, in place), ma_update_rows (live rows), and
+    # the out-of-place pull-back of the threaded round
+    mean = ma_ref.replica_mean_ref(stack0) * 1.01
+    ks = stack0.clone()
+    one_launch(ma_ops.ma_sync_op, lambda: ma_ops.ma_sync_op(ks, mean, 0.5))
+    err = max_err([ks], [ma_ref.ma_update_ref(stack0.clone(), mean, 0.5)])
+    assert err <= SYNC_TOL, ("ma_update", err)
+    rows["ma_update"] = sync_row(
+        "ma_update", "ma_update/csrc/ma_update.cu", "ma_update/ma_update.py:168", err,
+        bound((2 * R_ + 1) * plane + R_ * 4, 3 * R_ * elems, mem_rate),
+        **timings(torch, lambda: ma_ops.ma_sync_op(ks, mean, 0.5),
+                  lambda: ma_ref.ma_update_ref(ks, mean, 0.5), DEVICE_NAMES["ma_update"],
+                  lambda: ks.lerp_(mean, 0.5)))
+    emit_row(rows["ma_update"], in_place=True)
+    src, out = stack0[1:2].clone(), torch.empty_like(stack0[1:2])
+    one_launch(ma_ops.ma_sync_op, lambda: ma_ops.ma_sync_op(src, mean, 0.5, out=out))
+    err = max_err([out], [ma_ref.ma_update_ref(stack0[1:2].clone(), mean, 0.5)])
+    assert err <= SYNC_TOL and torch.equal(src, keep[1:2]), ("ma_update out of place", err)
+    emit_row(sync_row("ma_update", "ma_update/csrc/ma_update.cu", "ma_update/ma_update.py:168",
+                      err, bound(3 * plane + 4, 3 * elems, mem_rate),
+                      **timings(torch, lambda: ma_ops.ma_sync_op(src, mean, 0.5, out=out),
+                                lambda: ma_ref.ma_update_ref(src, mean, 0.5, out=out),
+                                DEVICE_NAMES["ma_update"],
+                                lambda: torch.lerp(src, mean, 0.5, out=out))), in_place=False)
+    ks = stack0.clone()
+    one_launch(ma_ops.ma_sync_rows_op, lambda: ma_ops.ma_sync_rows_op(ks, mean, live, 0.5))
+    err = max_err([ks], [ma_ref.ma_update_rows_ref(stack0.clone(), mean, live, 0.5)])
+    assert err <= SYNC_TOL, ("ma_update_rows", err)
+    assert torch.equal(ks[1], stack0[1]), "ma_update_rows wrote a row outside rows"
+    rows["ma_update_rows"] = sync_row(
+        "ma_update_rows", "ma_update/csrc/ma_update.cu", "ma_update/ma_update.py:145", err,
+        bound((2 * A + 1) * plane + A * 4, 3 * A * elems, mem_rate),
+        **timings(torch, lambda: ma_ops.ma_sync_rows_op(ks, mean, live, 0.5),
+                  lambda: ma_ref.ma_update_rows_ref(ks, mean, live, 0.5),
+                  DEVICE_NAMES["ma_update_rows"]))
+    emit_row(rows["ma_update_rows"], rows=[0, 2, 3])
+
+    # K6 · bmuf_update (Nesterov off and on) and bmuf_update_rows
+    wg0 = ma_ref.replica_mean_ref(keep)
+    vel0 = torch.randn((n, lanes), generator=gen).to("cuda") * 1e-3
+    for nesterov in (False, True):
+        kw = dict(eta=0.9, block_momentum=0.5, nesterov=nesterov)
+        k = [stack0.clone(), wg0.clone(), vel0.clone()]
+        one_launch(bmuf_sync_op, lambda: bmuf_sync_op(k[0], mean, k[1], k[2], 0.5, **kw))
+        err = max_err(k, bmuf_update_ref(stack0.clone(), mean, wg0.clone(), vel0.clone(), 0.5,
+                                         **kw))
+        assert err <= SYNC_TOL, ("bmuf_update", nesterov, err)
+        row = sync_row("bmuf_update", "bmuf_update/csrc/bmuf_update.cu",
+                       "bmuf_update/bmuf_update.py:82", err,
+                       bound((2 * R_ + 5) * plane + R_ * 4, (3 * R_ + 8) * elems, mem_rate),
+                       **timings(torch, lambda: bmuf_sync_op(k[0], mean, k[1], k[2], 0.5, **kw),
+                                 lambda: bmuf_update_ref(k[0], mean, k[1], k[2], 0.5, **kw),
+                                 DEVICE_NAMES["bmuf_update"]))
+        emit_row(row, nesterov=nesterov)
+        if not nesterov:
+            rows["bmuf_update"] = row
+    kw = dict(eta=0.9, block_momentum=0.5, nesterov=False)
+    k = [stack0.clone(), wg0.clone(), vel0.clone()]
+    one_launch(bmuf_sync_rows_op,
+               lambda: bmuf_sync_rows_op(k[0], mean, k[1], k[2], live, 0.5, **kw))
+    err = max_err(k, bmuf_update_rows_ref(stack0.clone(), mean, wg0.clone(), vel0.clone(), live,
+                                          0.5, **kw))
+    assert err <= SYNC_TOL, ("bmuf_update_rows", err)
+    assert torch.equal(k[0][1], stack0[1]), "bmuf_update_rows wrote a row outside rows"
+    rows["bmuf_update_rows"] = sync_row(
+        "bmuf_update_rows", "bmuf_update/csrc/bmuf_update.cu", "bmuf_update/bmuf_update.py:157",
+        err, bound((2 * A + 5) * plane + A * 4, (3 * A + 8) * elems, mem_rate),
+        **timings(torch, lambda: bmuf_sync_rows_op(k[0], mean, k[1], k[2], live, 0.5, **kw),
+                  lambda: bmuf_update_rows_ref(k[0], mean, k[1], k[2], live, 0.5, **kw),
+                  DEVICE_NAMES["bmuf_update_rows"]))
+    emit_row(rows["bmuf_update_rows"], rows=[0, 2, 3])
+
+    # K7 · gossip_pair (out of place) and gossip_round at P=4 and P=2
+    a, b = stack0[0].clone(), stack0[1].clone()
+    got = one_launch(gossip_pair_flat_op, lambda: gossip_pair_flat_op(a, b, 0.5))
+    err = max_err(got, gossip_pair_ref(a, b, 0.5))
+    assert err <= SYNC_TOL, ("gossip_pair", err)
+    assert torch.equal(a, keep[0]) and torch.equal(b, keep[1]), "gossip_pair wrote its inputs"
+    assert {got[0].data_ptr(), got[1].data_ptr()}.isdisjoint({a.data_ptr(), b.data_ptr()})
+    rows["gossip_pair"] = sync_row(
+        "gossip_pair", "gossip_update/csrc/gossip_update.cu", "gossip_update/gossip_update.py:66",
+        err, bound(4 * plane, 6 * elems, mem_rate),
+        **timings(torch, lambda: gossip_pair_flat_op(a, b, 0.5),
+                  lambda: gossip_pair_ref(a, b, 0.5), DEVICE_NAMES["gossip_pair"]))
+    emit_row(rows["gossip_pair"])
+    for land, self_pos, partner_pos in (([0, 1, 2, 3], [0, 1, 2, 3], [1, 0, 3, 2]),
+                                        ([1, 3], [0, 1], [1, 0])):
+        P = len(land)
+        args = (i32(land), i32(self_pos), i32(partner_pos))
+        snap = stack0.index_select(0, args[0].long()) * 1.01  # a separate launch gather
+        ks = stack0.clone()
+        one_launch(gossip_round_op, lambda: gossip_round_op(ks, snap, *args, 0.5))
+        err = max_err([ks], [gossip_round_ref(stack0.clone(), snap, *args, 0.5)])
+        assert err <= SYNC_TOL, ("gossip_round", P, err)
+        for i in set(range(R_)) - set(land):
+            assert torch.equal(ks[i], stack0[i]), "gossip_round wrote a row outside land"
+        row = sync_row("gossip_round", "gossip_update/csrc/gossip_update.cu",
+                       "gossip_update/gossip_update.py:127", err,
+                       bound(3 * P * plane + 3 * P * 4, 5 * P * elems, mem_rate),
+                       **timings(torch, lambda: gossip_round_op(ks, snap, *args, 0.5),
+                                 lambda: gossip_round_ref(ks, snap, *args, 0.5),
+                                 DEVICE_NAMES["gossip_round"]))
+        emit_row(row, participants=P)
+        if P == R_:
+            rows["gossip_round"] = row
+    return rows
+
+
+def shadow_plan(sim, state, n_iters, n_live, sched=()):
+    """(launches, landings, joins) of the shadow syncs of ``n_iters``
+    iterations from ``state`` (before the run, which moves it), replayed
+    from the run's own ``_shadow_schedule`` and membership schedule as
+    ``HogwildSim.run`` applies them (delay >= 1). A landing counts when it
+    runs a kernel: under Gossip, when a pair member it drew at launch (from
+    the round counter) is still live."""
+    import numpy as np
+
+    from repro_torch.core import algorithms
+
+    gossip = sim.algo.name == "gossip"
+    counter = state.algo_state if gossip else 0
+    active = np.arange(sim.R) < n_live
+    pending, launches, landings, joins = None, 0, 0, 0
+    for t in range(state.step, state.step + n_iters):
+        for it, kind, slot in sched:
+            if it == t:
+                active[slot] = kind == "join"
+                joins += kind == "join"
+        if pending is not None and t + 1 >= pending[0]:
+            if active.any():
+                landings += not gossip or bool(active[pending[1]].any())
+                counter += 1
+            pending = None
+        mask = sim._shadow_schedule(t + 1) & active
+        if pending is None and mask.any():
+            launches += 1
+            rows = (algorithms._gossip_participants_np(mask, sim.R, counter, active)[0]
+                    if gossip else [])
+            pending = (t + 1 + sim.sync_cfg.delay, np.asarray(rows, dtype=np.int64))
+    return launches, landings, joins
+
+
+def expected_sync_counts(algo, launches, landings, joins):
+    """Launches of each sync wrapper that a run with these launches,
+    landings and joins makes: elastic runs (``joins`` not None) go through
+    the *_rows kernels only."""
+    if joins is None:
+        return {"ma": {"replica_mean": launches, "ma_update": landings},
+                "bmuf": {"replica_mean": launches, "bmuf_update": landings},
+                "gossip": {"gossip_round": landings}}[algo]
+    return {"ma": {"replica_mean_rows": launches + joins, "ma_update_rows": landings},
+            "bmuf": {"replica_mean_rows": launches + joins, "bmuf_update_rows": landings},
+            "gossip": {"replica_mean_rows": joins, "gossip_round": landings}}[algo]
+
+
 def profile_window(torch, sim, state, iters):
     """Device time by kernel over ``iters`` main-path iterations. Returns
     (summary, next state)."""
@@ -339,6 +588,14 @@ def reset_counts(ops):
         op.launches = 0
 
 
+def release(torch):
+    """Free the device memory of the objects just dropped: a runner holds
+    reference cycles (its supervisor's callbacks), which only the cyclic
+    collector breaks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -349,11 +606,15 @@ def main() -> int:
     from repro_torch import optim
     from repro_torch import tree as T
     from repro_torch.configs import dlrm_ctr
-    from repro_torch.core.runners import HogwildSim, ThreadedShadowRunner
+    from repro_torch.core.membership import FaultSpec
+    from repro_torch.core.runners import HogwildSim, SimState, ThreadedShadowRunner
     from repro_torch.core.sync import SyncConfig
     from repro_torch.kernels import backend
+    from repro_torch.kernels.bmuf_update.ops import bmuf_sync_op, bmuf_sync_rows_op
     from repro_torch.kernels.easgd_update.ops import easgd_pair_flat_op, easgd_round_op
     from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
+    from repro_torch.kernels.gossip_update.ops import gossip_pair_flat_op, gossip_round_op
+    from repro_torch.kernels.ma_update import ops as ma_ops
     from repro_torch.kernels.sparse_adagrad.ops import sparse_adagrad_op
 
     t_start = time.perf_counter()
@@ -374,8 +635,8 @@ def main() -> int:
             ptxas = [ln.strip() for ln in f
                      if "registers" in ln or "spill" in ln or "entry function" in ln]
         emit({"phase": "build", "kernel": name, "ptxas": ptxas})
-        if name == "easgd_update":
-            assert any("easgd_pair_kernel" in ln for ln in ptxas), "no easgd_pair_kernel built"
+        for fn in set(DEVICE_NAMES_BY_SOURCE[name].values()):
+            assert any(fn in ln for ln in ptxas), f"no {fn} built"
     emit({"phase": "build", "built": built, "seconds": time.perf_counter() - t0})
 
     # 4a · the main path's sim and state (its tables feed phase 3 too)
@@ -390,19 +651,37 @@ def main() -> int:
 
     # 3 · each kernel against its plain version
     rows = check_kernels(torch, sim, st, mem_rate)
+    sync_rows = check_sync_kernels(torch, st, mem_rate)
+    torch.cuda.empty_cache()
 
     # 4 · the main path
     ops = {"embedding_bag": embedding_bag_op, "sparse_adagrad": sparse_adagrad_op,
            "easgd_round": easgd_round_op, "easgd_pair": easgd_pair_flat_op}
+    sync_ops = {"replica_mean": ma_ops.replica_mean_op,
+                "replica_mean_rows": ma_ops.replica_mean_rows_op,
+                "ma_update": ma_ops.ma_sync_op, "ma_update_rows": ma_ops.ma_sync_rows_op,
+                "bmuf_update": bmuf_sync_op, "bmuf_update_rows": bmuf_sync_rows_op,
+                "gossip_pair": gossip_pair_flat_op, "gossip_round": gossip_round_op}
+    all_ops = {**ops, **sync_ops}
+    path_counts = {}  # {path: {kernel: launches in that path's run}}
+
+    def read_counts(path):
+        counts = path_counts[path] = {k: op.launches for k, op in all_ops.items()}
+        return counts
+
+    def check_sync_counts(path, counts, want):
+        """Each sync wrapper launched exactly as ``want`` says (0 if absent)."""
+        for k in sync_ops:
+            assert counts[k] == want.get(k, 0), (path, k, counts[k], want.get(k, 0), counts)
     warm = sim.run(WARM_ITERS, state=st)
     torch.cuda.synchronize()
-    reset_counts(ops.values())
+    reset_counts(all_ops.values())
     t0 = time.perf_counter()
     out = sim.run(TIMED_ITERS, state=warm["state"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = read_counts("sim_easgd")
     ev = sim.evaluate(out["state"], n_batches=4, batch_size=4096)
-    launches = {k: op.launches for k, op in ops.items()}
     losses = warm["train_loss"] + out["train_loss"]
     assert all(math.isfinite(x) for x in losses) and math.isfinite(ev), (losses, ev)
     assert out["sync_count"] > 0, out["sync_count"]
@@ -415,6 +694,7 @@ def main() -> int:
           "sync_count": out["sync_count"], "avg_sync_gap": out["avg_sync_gap"],
           "launches": launches, "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
     assert launches["easgd_pair"] == 0, launches  # HogwildSim lands with the round kernel
+    check_sync_counts("sim_easgd", launches, {})
     for k, row in rows.items():
         row["launches"] = launches[k]
     t0 = time.perf_counter()
@@ -434,8 +714,96 @@ def main() -> int:
     assert out_fr["sync_count"] == R and easgd_round_op.launches == 1, out_fr["sync_count"]
     emit({"phase": "main_path", "mode": "fixed_rate", "iters": 5,
           "loss_last": out_fr["train_loss"][-1], "sync_count": out_fr["sync_count"]})
-    del sim, fr, st, warm, out, out_fr, state
+    base = out_fr["state"]
+    del sim, fr, st, warm, out, state
     torch.cuda.empty_cache()
+
+    # the same path under MA, BMUF and Gossip, each from a copy of the
+    # trained replicas and tables on a stream of its own (seed), so no run
+    # sees another's batches; every sync launch is predicted from the run's
+    # shadow schedule
+    for k, algo in enumerate(ALGOS):
+        sa = HogwildSim(cfg, SyncConfig(algo=algo), n_trainers=R, n_threads=M, batch_size=B,
+                        optimizer=optim.adagrad(0.02), seed=1 + k, device="cuda")
+        st_a = SimState(base.w_stack.clone(), T.map(torch.clone, base.opt_stack),
+                        T.map(torch.clone, base.emb_state),
+                        sa.algo.init_state_flat(base.w_stack[0].clone(), sa.sync_cfg, sa.flat), 0)
+        warm_a = sa.run(WARM_ITERS, state=st_a)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_launch, n_land, _ = shadow_plan(sa, warm_a["state"], ALGO_ITERS, R)
+        reset_counts(all_ops.values())
+        t0 = time.perf_counter()
+        out_a = sa.run(ALGO_ITERS, state=warm_a["state"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(f"sim_{algo}")
+        check_sync_counts(f"sim_{algo}", counts, expected_sync_counts(algo, n_launch, n_land, None))
+        assert n_land > 0 and out_a["sync_count"] > 0, out_a["sync_count"]
+        assert counts["embedding_bag"] == counts["sparse_adagrad"] == ALGO_ITERS, counts
+        assert counts["easgd_round"] == counts["easgd_pair"] == 0, counts
+        losses = warm_a["train_loss"] + out_a["train_loss"]
+        assert all(math.isfinite(x) for x in losses), losses
+        emit({"phase": "main_path", "algo": algo, "mode": "shadow", "iters": ALGO_ITERS,
+              "ms_per_iter": wall / ALGO_ITERS * 1e3, "examples_per_s": out_a["examples"] / wall,
+              "loss_first": losses[0], "loss_last": losses[-1],
+              "sync_count": out_a["sync_count"], "avg_sync_gap": out_a["avg_sync_gap"],
+              "sync_launches": n_launch, "sync_landings": n_land, "launches": counts,
+              "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+        del sa, st_a, warm_a, out_a
+        release(torch)
+
+    # elastic membership at full width: slot 1 fails at 3 and rejoins at 6, a
+    # spare slot 4 joins at 8 (capacity 5); only the *_rows kernels sync
+    for k, algo in enumerate(ALGOS):
+        se = HogwildSim(cfg, SyncConfig(algo=algo), n_trainers=R, n_threads=M, batch_size=B,
+                        optimizer=optim.adagrad(0.02), seed=1 + len(ALGOS) + k,
+                        schedule=list(ELASTIC_SCHED), device="cuda")
+        cap = se.R
+        pick = torch.tensor([i % R for i in range(cap)], device="cuda")
+        st_e = SimState(base.w_stack.index_select(0, pick),
+                        T.map(lambda x: x.index_select(0, pick), base.opt_stack),
+                        T.map(torch.clone, base.emb_state),
+                        se.algo.init_state_flat(base.w_stack[0].clone(), se.sync_cfg, se.flat), 0)
+        spare0 = st_e.w_stack[cap - 1].clone()
+        seen = {}
+
+        def watch(t, _loss):
+            if t in (3, 5):  # slot 1 is dead from the start of 3 to its join at 6
+                seen[t] = st_e.w_stack[1].clone()
+            if t == 7:  # the spare slot has never been live
+                seen["spare"] = st_e.w_stack[cap - 1].clone()
+
+        n_launch, n_land, n_join = shadow_plan(se, st_e, ELASTIC_ITERS, R, ELASTIC_SCHED)
+        torch.cuda.synchronize()
+        reset_counts(all_ops.values())
+        t0 = time.perf_counter()
+        out_e = se.run(ELASTIC_ITERS, state=st_e, on_iter=watch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(f"elastic_{algo}")
+        # a Gossip landing whose fired replica was left unpaired by the live
+        # ring (three live slots) has no participant and launches nothing
+        check_sync_counts(f"elastic_{algo}", counts,
+                          expected_sync_counts(algo, n_launch, n_land, n_join))
+        assert counts["replica_mean_rows"] > 0, counts
+        assert torch.equal(seen[3], seen[5]), "the dead slot moved while dead"
+        assert torch.equal(seen["spare"], spare0), "the spare slot moved before it joined"
+        events = [(e.kind, e.slot) for e in out_e["membership_events"]]
+        assert events == [("fail", 1), ("join", 1), ("activate", 1), ("join", 4),
+                          ("activate", 4)], events
+        assert all(math.isfinite(x) for x in out_e["train_loss"]), out_e["train_loss"]
+        assert out_e["replica_losses"].shape == (ELASTIC_ITERS, cap) and out_e["sync_count"] > 0
+        emit({"phase": "elastic_path", "algo": algo, "iters": ELASTIC_ITERS, "capacity": cap,
+              "ms_per_iter": wall / ELASTIC_ITERS * 1e3, "examples": out_e["examples"],
+              "loss_first": out_e["train_loss"][0], "loss_last": out_e["train_loss"][-1],
+              "sync_count": out_e["sync_count"], "avg_sync_gap": out_e["avg_sync_gap"],
+              "sync_launches": n_launch, "sync_landings": n_land, "joins": n_join,
+              "membership_events": events, "dead_slot_frozen": True, "launches": counts})
+        del se, st_e, out_e, seen
+        release(torch)
+    del base, out_fr
+    release(torch)
 
     # the same tiny run on the card and on the CPU (plain versions) agree
     tiny = {}
@@ -460,9 +828,9 @@ def main() -> int:
     emit({"phase": "threaded_setup", "warmup_s": time.perf_counter() - t0,
           "shard_rows": list(runner.plan.shard_rows)})
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(ops.values())
+    reset_counts(all_ops.values())
     out = runner.run(THREADED_ITERS)
-    launches = {k: op.launches for k, op in ops.items()}
+    launches = read_counts("threaded_easgd")
     per_kernel_call = R * N_SHARDS * THREADED_ITERS
     assert all(math.isfinite(x) for x in out["train_loss"]), out["train_loss"]
     assert out["iter_count"] == [THREADED_ITERS] * R, out["iter_count"]
@@ -471,6 +839,7 @@ def main() -> int:
     assert not bad and not out["sync_degraded"], bad
     assert launches["embedding_bag"] == launches["sparse_adagrad"] == per_kernel_call, launches
     assert launches["easgd_pair"] > 0 and launches["easgd_round"] == 0, launches
+    check_sync_counts("threaded_easgd", launches, {"gossip_pair": 0})
     emit({"phase": "threaded_main_path", "mode": "shadow", "iters_per_trainer": THREADED_ITERS,
           "eps": out["eps"], "eps_window": out["eps_window"], "wall_s": out["wall_s"],
           "per_trainer_eps": out["per_trainer_eps"], "sync_rounds": out["sync_rounds"],
@@ -488,7 +857,7 @@ def main() -> int:
     prof = threaded_profile(torch, runner, PROFILED_ITERS)
     emit({"phase": "threaded_profile", **prof})
     del runner, out
-    torch.cuda.empty_cache()
+    release(torch)
 
     # threaded fixed_rate: every round is run by the barrier's elected leader
     fr = ThreadedShadowRunner(cfg, SyncConfig(mode="fixed_rate", gap=5), n_trainers=R,
@@ -503,7 +872,7 @@ def main() -> int:
           "sync_count": out_fr["sync_count"], "eps": out_fr["eps"],
           "train_loss": out_fr["train_loss"], "easgd_pair_launches": easgd_pair_flat_op.launches})
     del fr, out_fr
-    torch.cuda.empty_cache()
+    release(torch)
 
     # the same tiny one-trainer threaded run (deterministic) on the card and the CPU
     tiny = {}
@@ -522,7 +891,87 @@ def main() -> int:
         diff = max(diff, (a.cpu() - b).abs().max().item())
     emit({"phase": "threaded_reference", "max_abs_diff_cuda_vs_cpu": diff})
 
-    # 6 · the kernel table, the card, the result
+    # the threaded path under MA, BMUF and Gossip: a round is one mean and R
+    # out-of-place pull-backs (MA, BMUF), or R/2 pair exchanges (Gossip)
+    per_round = {"ma": {"replica_mean": 1, "ma_update": R},
+                 "bmuf": {"replica_mean": 1, "ma_update": R},
+                 "gossip": {"gossip_pair": R // 2}}
+    for algo in ALGOS:
+        ra = ThreadedShadowRunner(cfg, SyncConfig(algo=algo), n_trainers=R, batch_size=B,
+                                  optimizer=optim.adagrad(0.02), n_emb_shards=N_SHARDS,
+                                  device="cuda")
+        ra.warmup()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(all_ops.values())
+        out = ra.run(ALGO_THREADED_ITERS)
+        counts = read_counts(f"threaded_{algo}")
+        assert all(math.isfinite(x) for x in out["train_loss"]), out["train_loss"]
+        assert out["iter_count"] == [ALGO_THREADED_ITERS] * R, out["iter_count"]
+        bad = [e for e in out["supervision_events"] if e.kind in ("restart", "degraded")]
+        assert not bad and not out["sync_degraded"] and out["sync_restarts"] == 0, bad
+        assert out["sync_count"] > 0, out["sync_count"]
+        n_calls = R * N_SHARDS * ALGO_THREADED_ITERS
+        assert counts["embedding_bag"] == counts["sparse_adagrad"] == n_calls, counts
+        # MA, BMUF and Gossip count one sync per round that landed
+        check_sync_counts(f"threaded_{algo}", counts,
+                          {k: v * out["sync_count"] for k, v in per_round[algo].items()})
+        emit({"phase": "threaded_main_path", "algo": algo, "mode": "shadow",
+              "iters_per_trainer": ALGO_THREADED_ITERS, "eps": out["eps"],
+              "eps_window": out["eps_window"], "wall_s": out["wall_s"],
+              "per_trainer_eps": out["per_trainer_eps"], "sync_rounds": out["sync_rounds"],
+              "rounds_per_s": out["sync_rounds"] / out["wall_s"],
+              "sync_count": out["sync_count"], "avg_sync_gap": out["avg_sync_gap"],
+              "train_loss": out["train_loss"], "launches": counts,
+              "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+        del ra, out
+        release(torch)
+
+    # MA with a trainer that joins: its bootstrap is the live mean (K5 rows)
+    rj = ThreadedShadowRunner(cfg, SyncConfig(algo="ma"), n_trainers=R, batch_size=B,
+                              optimizer=optim.adagrad(0.02), n_emb_shards=N_SHARDS,
+                              fault_spec=FaultSpec(join_at={R - 1: 5}), device="cuda")
+    rj.warmup()
+    reset_counts(all_ops.values())
+    out = rj.run(10)
+    counts = read_counts("threaded_ma_join")
+    events = [(e.kind, e.slot) for e in out["membership_events"]]
+    assert ("join", R - 1) in events and ("activate", R - 1) in events, events
+    assert counts["replica_mean_rows"] == 1, counts
+    assert out["iter_count"][R - 1] == 10 - 5 and all(math.isfinite(x) for x in out["train_loss"])
+    emit({"phase": "threaded_join", "algo": "ma", "membership_events": events,
+          "iter_count": out["iter_count"], "sync_count": out["sync_count"], "launches": counts})
+    del rj, out
+    release(torch)
+
+    # 6 · the tiny elastic runs (the reference's schedule), card against CPU
+    for algo in ALGOS:
+        tiny = {}
+        for dev in ("cuda", "cpu"):
+            s_ = HogwildSim(dlrm_ctr.tiny(), SyncConfig(algo=algo, gap=4, delay=1), n_trainers=3,
+                            n_threads=2, batch_size=32, optimizer=optim.adagrad(0.02),
+                            schedule=list(TINY_SCHED), device=dev)
+            o = s_.run(16)
+            tiny[dev] = (o["train_loss"], o["sync_count"], o["state"].w_stack.cpu())
+        assert tiny["cuda"][1] == tiny["cpu"][1] > 0, (algo, tiny["cuda"][1], tiny["cpu"][1])
+        for a, b in zip(tiny["cuda"][0], tiny["cpu"][0]):
+            assert abs(a - b) <= 1e-5 + 1e-4 * abs(b), ("tiny elastic cuda vs cpu", algo, a, b)
+        torch.testing.assert_close(tiny["cuda"][2], tiny["cpu"][2], rtol=1e-4, atol=1e-5)
+        emit({"phase": "elastic_reference", "algo": algo,
+              "max_loss_diff_cuda_vs_cpu": max(abs(a - b) for a, b in zip(tiny["cuda"][0],
+                                                                         tiny["cpu"][0])),
+              "max_plane_diff_cuda_vs_cpu": (tiny["cuda"][2] - tiny["cpu"][2]).abs().max().item(),
+              "sync_count": tiny["cuda"][1]})
+
+    # 7 · the kernel table, the card, the result
+    main_path_of = {"replica_mean": "sim_ma", "ma_update": "sim_ma",
+                    "replica_mean_rows": "elastic_ma", "ma_update_rows": "elastic_ma",
+                    "bmuf_update": "sim_bmuf", "bmuf_update_rows": "elastic_bmuf",
+                    "gossip_round": "sim_gossip", "gossip_pair": "threaded_gossip"}
+    for k, row in sync_rows.items():
+        row["launches"] = path_counts[main_path_of[k]][k]
+        row["launches_by_path"] = {p: c[k] for p, c in path_counts.items() if c[k]}
+        assert row["launches"] > 0, (k, row["launches_by_path"])
+    rows.update(sync_rows)
     emit({"kernels": [{k: v for k, v in row.items() if k != "tol"} for row in rows.values()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -12,19 +12,30 @@ semantics, or a fixed-rate barrier, and the ``SyncAlgorithm`` fetched from
 Each iteration launches the embedding-bag kernel once (the lookup of every
 trainer's and thread's bags from the pre-update tables), then the dense
 forward/backward and optimizer steps in plain torch, then the sparse-Adagrad
-kernel once with every thread's gradient. A landing sync is one launch of
-the EASGD round kernel over the flat ``(R, n_rows, 128)`` replica buffer
-(``engine="flat"``, the default); ``engine="pytree"`` runs the tree oracle.
+kernel once with every thread's gradient. A landing sync is the algorithm's
+kernel launch over the flat ``(R, n_rows, 128)`` replica buffer
+(``engine="flat"``, the default): EASGD's round, MA's and BMUF's pull-back
+toward the launch-time mean, Gossip's pair round; ``engine="pytree"`` runs
+the tree oracle.
+
+Elastic membership (``membership=`` or ``schedule=``): the buffers are
+allocated at the capacity ``R_max``, and join/leave/fail only flip the live
+mask. Dead slots are still computed, which keeps every shape fixed, but
+contribute nothing: ``torch.where`` keeps their weights and optimizer state
+and their embedding gradients are zeroed (a zero-gradient sparse-Adagrad
+row update leaves the row and its accumulator bitwise unchanged). Launches
+and landings take the live mask, so the sync kernels read and write only
+live rows. Without either option the sim runs the fixed-R path unchanged.
 
 ``ThreadedShadowRunner`` (below) is the paper's Algorithm 1 with real
 threads: trainer threads race on plan-sharded embedding PSs while a
 background shadow thread syncs the dense replicas, each thread on its own
 CUDA stream.
 
-Not yet ported: in ``HogwildSim`` elastic membership schedules, the tiered
-cache, step pipelining, mode switching and checkpoints; in
-``ThreadedShadowRunner`` the cache, step pipelining, the straggler policy
-and the mode controller. Passing their options raises.
+Not yet ported: in ``HogwildSim`` the tiered cache, step pipelining, mode
+switching and checkpoints; in ``ThreadedShadowRunner`` the cache, step
+pipelining, the straggler policy and the mode controller. Passing their
+options raises.
 """
 from __future__ import annotations
 
@@ -42,7 +53,7 @@ from repro_torch.core import algorithms, streams
 from repro_torch.core import sync as S
 from repro_torch.core.elp import EPSMeter, SlotEPS
 from repro_torch.core.flatspace import FlatSpace
-from repro_torch.core.membership import FaultSpec, Membership
+from repro_torch.core.membership import FaultSpec, Membership, MembershipSchedule
 from repro_torch.core.supervision import Supervisor, SupervisorConfig
 from repro_torch.data import ctr
 from repro_torch.embeddings import shards as emb_shards
@@ -94,8 +105,7 @@ class HogwildSim:
         mode_schedule=None,
         device: Optional[str] = None,
     ):
-        unported = dict(membership=membership, schedule=schedule, cache=cache,
-                        pipeline=pipeline, mode_schedule=mode_schedule)
+        unported = dict(cache=cache, pipeline=pipeline, mode_schedule=mode_schedule)
         for name, value in unported.items():
             if value is not None:
                 raise NotImplementedError(f"HogwildSim({name}=...) is not yet ported")
@@ -104,7 +114,22 @@ class HogwildSim:
         self.sync_cfg = sync_cfg.validate()
         self.engine = sync_cfg.engine
         self.algo = algorithms.get(sync_cfg.algo)
-        self.R, self.M, self.B = n_trainers, n_threads, batch_size
+        # Elastic membership: buffers at capacity R_max; join/leave/fail flip
+        # the live mask only. Without membership= or schedule= the sim runs
+        # the fixed-R path.
+        self._elastic = membership is not None or schedule is not None
+        if schedule is not None and not isinstance(schedule, MembershipSchedule):
+            schedule = MembershipSchedule(schedule)
+        self.schedule = schedule
+        if membership is None:
+            cap = n_trainers
+            if schedule is not None:
+                cap = max(cap, schedule.max_slot() + 1)
+            membership = Membership(n_trainers, R_max=cap)
+        if membership.R_max < n_trainers:
+            raise ValueError(f"membership capacity {membership.R_max} < n_trainers {n_trainers}")
+        self.membership = membership
+        self.R, self.M, self.B = membership.R_max, n_threads, batch_size
         self.opt = optimizer
         self.emb_lr = emb_lr
         self.seed = seed
@@ -113,25 +138,41 @@ class HogwildSim:
         self.flat = _dense_flatspace(cfg) if self.engine == "flat" else None
 
     # -- one training iteration ------------------------------------------------
-    def _dense_core(self, w: Tree, opt_state: Tree, pooled: torch.Tensor, batch):
+    def _dense_core(self, w: Tree, opt_state: Tree, pooled: torch.Tensor, batch,
+                    active: Optional[np.ndarray] = None):
         """Everything downstream of the lookup. ``w``: the (R, ...) replica
         stack; pooled: (R, M, B, F, d). M thread-gradients per trainer from the
-        SAME weights, applied one after another."""
+        SAME weights, applied one after another. With ``active`` (elastic
+        runs) dead slots keep their weights and optimizer state, their
+        embedding gradients are zeroed, and the loss is the per-replica
+        vector (R,); otherwise it is the cohort mean."""
         R, M = self.R, self.M
+        w_old, opt_old = w, opt_state
         w_threads = T.map(lambda x: x.unsqueeze(1).expand((R, M) + tuple(x.shape[1:])), w)
         loss, g_w, g_pooled = dlrm.dense_loss_and_grads(
             w_threads, batch["dense"], pooled, batch["labels"])  # loss: (R, M)
         for j in range(M):
             w, opt_state = self.opt.update(w, opt_state, T.map(lambda g: g[:, j], g_w))
-        return w, opt_state, loss.mean(1).mean(0), g_pooled
+        if active is None:
+            return w, opt_state, loss.mean(1).mean(0), g_pooled
+        live = torch.as_tensor(active, dtype=torch.bool, device=g_pooled.device)
 
-    def _train_iter(self, st: SimState, batch) -> torch.Tensor:
+        def keep(new, old):
+            return torch.where(live.reshape((R,) + (1,) * (old.dim() - 1)), new, old)
+
+        w = T.map(keep, w, w_old)
+        opt_state = T.map(keep, opt_state, opt_old)
+        g_pooled = torch.where(live.reshape((R, 1, 1, 1, 1)), g_pooled, 0.0)
+        return w, opt_state, loss.mean(1), g_pooled
+
+    def _train_iter(self, st: SimState, batch, active: Optional[np.ndarray] = None):
         cfg, spec = self.cfg, self.spec
         F, m, d = cfg.n_sparse_features, cfg.multi_hot, cfg.embedding_dim
         idx = batch["sparse"].reshape(-1, F, m)
         pooled = emb.lookup(st.emb_state, spec, idx).reshape(self.R, self.M, self.B, F, d)
         w = self.flat.unpack_stack(st.w_stack) if self.engine == "flat" else st.w_stack
-        w, st.opt_stack, loss, g_pooled = self._dense_core(w, st.opt_stack, pooled, batch)
+        w, st.opt_stack, loss, g_pooled = self._dense_core(w, st.opt_stack, pooled, batch,
+                                                           active)
         st.w_stack = self.flat.pack_stack(w) if self.engine == "flat" else w
         # Hogwild on the single embedding copy: one fused, in-place
         # scatter-Adagrad launch with every trainer's and thread's gradient.
@@ -167,79 +208,146 @@ class HogwildSim:
         offs = (np.arange(self.R) * gap) // max(self.R, 1)
         return ((t + offs) % gap) == 0
 
-    def _launch_snapshot(self, st: SimState, mask: np.ndarray) -> Any:
+    def _launch_snapshot(self, st: SimState, mask: np.ndarray,
+                         active: Optional[np.ndarray] = None) -> Any:
         """State captured when a background sync launches (lands ``delay``
-        later): the algorithm's compact form on the flat engine, a deep copy
-        of the stack on the pytree engine."""
+        later): the algorithm's compact form on the flat engine (a fired-rows
+        gather for EASGD and Gossip, the mean plane for MA and BMUF), a deep
+        copy of the stack on the pytree engine. ``active`` is the membership
+        mask at launch: a dead slot is never snapshotted."""
         if self.engine == "flat":
             return self.algo.launch_snapshot_flat(st.w_stack, mask, self.sync_cfg, self.flat,
-                                                  st.algo_state)
+                                                  st.algo_state, active=active)
         return T.map(torch.clone, st.w_stack)
 
-    def _apply_sync(self, st: SimState, snap, mask) -> SimState:
+    def _apply_sync(self, st: SimState, snap, mask, active=None, launch_active=None) -> SimState:
         """Land one sync. ``snap=None``: fixed rate, sync against the current
-        state; ``mask=None``: every replica fired."""
+        state; ``mask=None``: every replica fired; ``active`` /
+        ``launch_active``: the membership masks at landing / launch (None
+        when the run is not elastic)."""
         if self.engine == "flat":
             st.w_stack, st.algo_state = self.algo.land_flat(
-                st.w_stack, st.algo_state, snap, mask, self.sync_cfg, self.flat)
-        else:
+                st.w_stack, st.algo_state, snap, mask, self.sync_cfg, self.flat, active=active)
+        elif active is None:
             st.w_stack, st.algo_state = self.algo.land(
                 st.w_stack, st.algo_state, snap, mask, self.sync_cfg)
+        else:
+            st.w_stack, st.algo_state = self.algo.land_elastic(
+                st.w_stack, st.algo_state, snap, mask, active, self.sync_cfg,
+                launch_active=launch_active)
+        return st
+
+    def _apply_membership_event(self, st: SimState, kind: str, slot: int) -> SimState:
+        """One schedule transition, at an iteration boundary. A join
+        bootstraps through the algorithm's ``on_join`` hook (the live mean,
+        or EASGD's PS plane) with a fresh optimizer slot; a leave or fail
+        dispatches ``on_leave``. Nothing reallocates."""
+        sc, fs = self.sync_cfg, self.flat
+        if kind in ("fail", "leave"):
+            getattr(self.membership, kind)(slot)
+            if self.engine == "flat":
+                st.algo_state = self.algo.on_leave_flat(st.algo_state, slot, sc, fs)
+            else:
+                st.algo_state = self.algo.on_leave(st.algo_state, slot, sc)
+            return st
+        if kind != "join":
+            raise ValueError(f"unknown membership event kind {kind!r}")
+        donors = self.membership.active_mask()  # before the join
+        self.membership.join(slot)
+        if donors.any():  # no live donors: keep the slot's current weights
+            if self.engine == "flat":
+                st.w_stack, st.algo_state = self.algo.on_join_flat(
+                    st.w_stack, slot, st.algo_state, donors, sc, fs)
+            else:
+                st.w_stack, st.algo_state = self.algo.on_join(
+                    st.w_stack, slot, st.algo_state, donors, sc)
+        # a fresh optimizer state for the slot (every optimizer's init is
+        # made from the parameters' shapes alone)
+        st.opt_stack = S.tree_set(st.opt_stack, slot,
+                                  self.opt.init(self.replica_params(st, slot)))
+        self.membership.activate(slot)
         return st
 
     def run(self, n_iters: int, *, log_every: int = 0,
             on_iter: Optional[Callable[[int, float], None]] = None,
             state: Optional[SimState] = None) -> Dict[str, Any]:
         """Train ``n_iters`` iterations. ``state`` resumes a prior run: the
-        iteration numbering (the batch stream, the shadow clocks) continues
-        from ``state.step``."""
+        iteration numbering (the batch stream, the shadow clocks, the
+        membership schedule) continues from ``state.step``."""
         st = self.init_state() if state is None else state
         sc = self.sync_cfg
+        elastic = self._elastic
         losses: List[float] = []
+        replica_losses: List[np.ndarray] = []
         sync_count = 0
         examples = 0
         start = int(st.step)
-        # (land_t, snapshot, fired_mask)
-        pending: Optional[Tuple[int, Any, np.ndarray]] = None
+        # (land_t, snapshot, fired_mask, launch_active)
+        pending: Optional[Tuple[int, Any, np.ndarray, Optional[np.ndarray]]] = None
         for t in range(start, start + n_iters):
-            loss = self._train_iter(st, self.make_batch(t))
-            losses.append(float(loss))  # synchronises, as float() does in the reference
-            examples += self.R * self.M * self.B
+            if elastic and self.schedule is not None:
+                for kind, slot in self.schedule.events_at(t):
+                    st = self._apply_membership_event(st, kind, slot)
+            active = self.membership.active_mask() if elastic else None
+            loss = self._train_iter(st, self.make_batch(t), active)
+            # float()/numpy() synchronise, as float() does in the reference
+            if elastic:
+                lv = loss.detach().cpu().numpy()
+                replica_losses.append(lv)
+                # an all-dead cohort trains nothing: nan, not a mean of []
+                losses.append(float(lv[active].mean()) if active.any() else float("nan"))
+                examples += int(active.sum()) * self.M * self.B
+            else:
+                losses.append(float(loss))
+                examples += self.R * self.M * self.B
             if sc.mode == "fixed_rate":
-                if (t + 1) % sc.gap == 0:
-                    st = self._apply_sync(st, None, None)
-                    sync_count += self.R
+                if (t + 1) % sc.gap == 0 and (active is None or active.any()):
+                    st = self._apply_sync(st, None, None, active=active)
+                    sync_count += self.R if active is None else int(active.sum())
             else:  # shadow: land first, then launch
                 if pending is not None and t + 1 >= pending[0]:
-                    _, snap, mask = pending
-                    st = self._apply_sync(st, snap, mask)
-                    sync_count += int(mask.sum())
+                    _, snap, mask, launch_active = pending
+                    # the landing reads the CURRENT membership: a slot that
+                    # died in flight is skipped (an all-dead cohort drops it)
+                    if active is None or active.any():
+                        st = self._apply_sync(st, snap, mask, active=active,
+                                              launch_active=launch_active)
+                        sync_count += int(mask.sum())
                     pending = None
                 if pending is None:
                     mask = self._shadow_schedule(t + 1)
+                    if elastic:
+                        mask = mask & active  # a dead slot's clock never fires
                     if mask.any():
                         if sc.delay == 0:
                             # lands this iteration; no training step intervenes,
                             # so the pytree engine needs no deep copy
-                            snap = (self._launch_snapshot(st, mask)
+                            snap = (self._launch_snapshot(st, mask, active)
                                     if self.engine == "flat" else st.w_stack)
-                            st = self._apply_sync(st, snap, mask)
+                            st = self._apply_sync(st, snap, mask, active=active,
+                                                  launch_active=active)
                             sync_count += int(mask.sum())
                         else:
-                            pending = (t + 1 + sc.delay, self._launch_snapshot(st, mask), mask)
+                            pending = (t + 1 + sc.delay, self._launch_snapshot(st, mask, active),
+                                       mask, active)
             st.step = t + 1
             if on_iter:
                 on_iter(t, losses[-1])
             if log_every and (t + 1) % log_every == 0:
                 print(f"iter {t+1}: loss {np.mean(losses[-log_every:]):.5f}")
+        # replica-iterations actually trained (dead slots do not count)
         replica_iters = examples // (self.M * self.B)
-        return {
+        out = {
             "state": st,
             "train_loss": losses,
             "sync_count": sync_count,
             "avg_sync_gap": replica_iters / max(sync_count, 1),
             "examples": examples,
         }
+        if elastic:
+            out["replica_losses"] = np.stack(replica_losses)
+            out["membership_events"] = list(self.membership.events)
+        return out
 
     def replica_params(self, st: SimState, i: int) -> Tree:
         """Replica i's dense weights as a tree, whatever the engine."""
@@ -264,9 +372,11 @@ class HogwildSim:
 # Real-thread runner (faithful Algorithm 1)
 # ---------------------------------------------------------------------------
 
-# the kernel sources the threaded path launches: K1, K2 and the EASGD file
-# (K3 round, K4 pair)
-THREADED_KERNELS = ("embedding_bag", "sparse_adagrad", "easgd_update")
+# the kernel sources the threaded path launches: K1, K2 and the four sync
+# files (EASGD's pair K4; MA's mean and pull-back K5, which every non-EASGD
+# join also runs; BMUF's K6; Gossip's pair K7)
+THREADED_KERNELS = ("embedding_bag", "sparse_adagrad", "easgd_update", "ma_update",
+                    "bmuf_update", "gossip_update")
 
 
 class ThreadedShadowRunner:
@@ -279,8 +389,14 @@ class ThreadedShadowRunner:
     (``embeddings/shards.py``): lookups route by the LPT plan, one
     embedding-bag launch per shard, and each trainer's backward is one
     sparse-Adagrad launch per shard. The background round is built by the
-    ``SyncAlgorithm`` (``make_shadow_round``): for EASGD on the flat engine,
-    one out-of-place pair-kernel launch per live replica.
+    ``SyncAlgorithm`` (``make_shadow_round``) over the live planes, on the
+    flat engine: for EASGD one out-of-place pair-kernel launch per live
+    replica; for MA and BMUF one mean over the stacked planes, then one
+    out-of-place pull-back per plane (BMUF's global step between, its
+    ``(w_global, velocity)`` held only by the shadow thread); for Gossip one
+    out-of-place pair exchange per ring pair. A join bootstraps through the
+    algorithm's ``on_join`` hook (EASGD: the PS plane; the others: the live
+    mean, K5 ``replica_mean_rows``).
 
     One GPU, several threads. The reference overlaps its threads because
     jitted compute releases the GIL and its arrays are immutable, swapped
@@ -462,23 +578,25 @@ class ThreadedShadowRunner:
 
     # holds-lock: _state_lock
     def _bootstrap_join(self, i: int) -> None:
-        """Bootstrap a joining slot through the algorithm's ``on_join`` hook
-        (EASGD: the PS plane) with a fresh optimizer state. The hook sees a
-        COMPACT stack of [donor planes..., joiner plane], joiner last; the
-        donors are exactly the live cohort. Runs on the joiner's stream."""
+        """Bootstrap a joining slot through the algorithm's join hook (the
+        live mean; EASGD: the PS plane) with a fresh optimizer state. The flat
+        hook ``join_plane_flat`` sees a stack of the donor planes alone; the
+        pytree ``on_join`` a COMPACT stack of [donor planes..., joiner plane],
+        joiner last. The donors are exactly the live cohort. Runs on the
+        joiner's stream."""
         donor_ids = [int(j) for j in self.membership.active_ids()]
         if not donor_ids:  # no live donors: keep the slot's current weights
             self.opt_states[i] = self.opt.init(self._w0)
             return
         slot = len(donor_ids)  # joiner's position in the compact stack
-        active = np.asarray([True] * slot + [False])
-        planes = [streams.consume(self.w[j]) for j in donor_ids + [i]]
         state = streams.consume(self.algo_state)
         if self.engine == "flat":
-            buf, new_state = self.algo.on_join_flat(torch.stack(planes), slot, state, active,
-                                                    self.sync_cfg, self.flat)
-            w_i = buf[slot]
+            donors = torch.stack([streams.consume(self.w[j]) for j in donor_ids])
+            w_i, new_state = self.algo.join_plane_flat(donors, state, np.ones(slot, bool),
+                                                       self.sync_cfg, self.flat)
         else:
+            planes = [streams.consume(self.w[j]) for j in donor_ids + [i]]
+            active = np.asarray([True] * slot + [False])
             stack, new_state = self.algo.on_join(algorithms._stack_trees(planes), slot, state,
                                                  active, self.sync_cfg)
             w_i = S.tree_slice(stack, slot)

@@ -76,5 +76,6 @@ def consume(pub: Published) -> Any:
     wait(pub.event)
     stream = torch.cuda.current_stream()
     for leaf in T.leaves(pub.value):
-        leaf.record_stream(stream)
+        if isinstance(leaf, torch.Tensor):  # a state may hold host values (a counter)
+            leaf.record_stream(stream)
     return pub.value

@@ -1,4 +1,4 @@
-"""ShadowSync synchronization math over parameter trees (paper Algorithm 2),
+"""ShadowSync synchronization math over parameter trees (paper Algorithms 2-4),
 the twin of ``repro/core/sync.py``, and the sync configuration.
 
 Shadow and fixed-rate (FR) modes share these updates; what differs is when
@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import tree as T
@@ -27,17 +28,28 @@ def replica_mean(stack: Tree) -> Tree:
     return T.map(lambda x: x.float().mean(0), stack)
 
 
+def _bc_mask(mask, x: torch.Tensor) -> torch.Tensor:
+    """A (R,) bool mask (numpy, list or tensor) on ``x``'s device, broadcast
+    over a leaf with leading replica dim."""
+    m = torch.as_tensor(np.asarray(mask, dtype=bool), device=x.device)
+    return m.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
 def masked_replica_mean(stack: Tree, active) -> Tree:
     """Mean over only the ACTIVE replicas (the elastic-membership
     denominator: dead slots contribute nothing, the mean divides by the live
     count). ``active``: (R,) bool."""
+    cnt = max(float(np.asarray(active, dtype=bool).sum()), 1.0)
+
     def mean(x):
-        m = torch.as_tensor(active, dtype=torch.bool, device=x.device)
-        m = m.reshape((-1,) + (1,) * (x.dim() - 1))
-        cnt = max(float(m.sum()), 1.0)
-        return torch.where(m, x.float(), 0.0).sum(0) / cnt
+        return torch.where(_bc_mask(active, x), x.float(), 0.0).sum(0) / cnt
 
     return T.map(mean, stack)
+
+
+def _land_rows(new: Tree, old: Tree, land_active) -> Tree:
+    """``new`` on the rows of ``land_active``, ``old`` elsewhere."""
+    return T.map(lambda n, x: torch.where(_bc_mask(land_active, x), n, x), new, old)
 
 
 def tree_slice(stack: Tree, i) -> Tree:
@@ -82,6 +94,77 @@ def easgd_round(w_stack: Tree, w_ps: Tree, alpha: float, mask: Optional[torch.Te
         return x
 
     return T.map(land, w_stack, *rows.values()), w_ps
+
+
+# ---------------------------------------------------------------------------
+# Model Averaging (decentralized; Algorithm 3)
+# ---------------------------------------------------------------------------
+
+def ma_round(w_stack: Tree, alpha: float, snapshot: Optional[Tree] = None, active=None,
+             land_active=None) -> Tree:
+    """AllReduce-average the replicas, then elastically pull each replica
+    toward the average. ``snapshot`` (if given) is the stack at sync launch:
+    the average comes from it while the pull-back lands on the current stack.
+
+    Elastic membership: ``active`` ((R,) bool) restricts the MEAN to the
+    replicas live at launch (divide by the live count); ``land_active``
+    restricts the pull-back to the replicas live at landing (defaults to
+    ``active``; dead slots are untouched either way). Out of place."""
+    src = snapshot if snapshot is not None else w_stack
+    w_global = replica_mean(src) if active is None else masked_replica_mean(src, active)
+    new = lerp(w_stack, T.map(lambda g, x: g.to(x.dtype).expand_as(x), w_global, w_stack), alpha)
+    if land_active is None:
+        land_active = active
+    if land_active is None:
+        return new
+    return _land_rows(new, w_stack, land_active)
+
+
+# ---------------------------------------------------------------------------
+# BMUF (decentralized; Algorithm 4)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class BMUFState:
+    """BMUF's state: a dataclass of two trees, mapped field by field by
+    ``tree.map`` (the twin of the reference's registered dataclass)."""
+
+    w_global: Tree
+    velocity: Tree  # block momentum buffer
+
+    @staticmethod
+    def init(w0: Tree) -> "BMUFState":
+        return BMUFState(w_global=T.map(lambda x: x.float().clone(), w0),
+                         velocity=T.map(lambda x: torch.zeros_like(x, dtype=torch.float32), w0))
+
+
+def bmuf_round(w_stack: Tree, state: BMUFState, alpha: float, *, eta: float = 1.0,
+               block_momentum: float = 0.0, nesterov: bool = False, step_scale_n: bool = False,
+               snapshot: Optional[Tree] = None, active=None,
+               land_active=None) -> Tuple[Tree, BMUFState]:
+    """Algorithm 4. AllReduce-average -> descent direction against w_global
+    -> (optional block-momentum / Nesterov) global step -> elastic pull-back
+    into each replica. ``active`` restricts the mean to the replicas live at
+    launch, ``land_active`` the pull-back to those live at landing (defaults
+    to ``active``); the global step has no replica axis.
+
+    ``step_scale_n=True`` is the paper's line 9 literally (w_global += n *
+    w_desc); the default is the classic BMUF block step (scale 1), as in the
+    reference. Out of place."""
+    R = T.leaves(w_stack)[0].shape[0]
+    src = snapshot if snapshot is not None else w_stack
+    w_copy = replica_mean(src) if active is None else masked_replica_mean(src, active)
+    desc = T.map(lambda c, g: c - g, w_copy, state.w_global)
+    scale = float(R) if step_scale_n else 1.0
+    vel = T.map(lambda v, d: block_momentum * v + eta * scale * d, state.velocity, desc)
+    w_global = T.map(lambda g, v: g + v, state.w_global, vel)
+    look = T.map(lambda g, v: g + block_momentum * v, w_global, vel) if nesterov else w_global
+    new = lerp(w_stack, T.map(lambda g, x: g.to(x.dtype).expand_as(x), look, w_stack), alpha)
+    if land_active is None:
+        land_active = active
+    if land_active is not None:
+        new = _land_rows(new, w_stack, land_active)
+    return new, BMUFState(w_global=w_global, velocity=vel)
 
 
 @dataclass(frozen=True)

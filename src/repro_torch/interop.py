@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.core.runners import SimState
+from repro_torch.core.sync import BMUFState
 from repro_torch.embeddings import shards
 
 Tree = Any
@@ -35,14 +36,32 @@ def tables_from_numpy(state: Dict[str, Any], device="cpu") -> Dict[str, torch.Te
     return {"table": _tensor(state["table"], device), "acc": _tensor(state["acc"], device)}
 
 
+def algo_state_from_numpy(algo_name: str, state: Any, device="cpu") -> Any:
+    """A JAX algorithm state, its arrays as numpy -> the port's. EASGD: the PS
+    plane (flat) or tree (pytree); BMUF: anything with ``w_global`` and
+    ``velocity`` (the reference's ``BMUFState``, or a dict of the two) ->
+    ``BMUFState``; Gossip: the round counter -> a host int; MA: None. Any
+    other algorithm's state is carried as a tree of arrays (None stays None)."""
+    if algo_name == "gossip":
+        return int(np.asarray(state))
+    if algo_name == "bmuf":
+        get = state.get if isinstance(state, dict) else lambda k: getattr(state, k)
+        return BMUFState(w_global=dense_from_numpy(get("w_global"), device),
+                         velocity=dense_from_numpy(get("velocity"), device))
+    if state is None:
+        return None
+    return dense_from_numpy(state, device)
+
+
 def sim_state_from_numpy(w_stack: Tree, opt_stack: Tree, emb_state: Dict[str, Any],
-                         algo_state: Tree, step: int = 0, device="cpu") -> SimState:
+                         algo_state: Any, step: int = 0, device="cpu",
+                         algo: str = "easgd") -> SimState:
     """The JAX ``SimState``'s fields -> a port ``SimState``. ``w_stack`` is the
     flat (R, n_rows, 128) buffer or the tree stack, as the engine has it;
-    ``algo_state`` the EASGD PS plane (flat) or PS tree (pytree)."""
+    ``algo_state`` that of the algorithm ``algo`` (``algo_state_from_numpy``)."""
     return SimState(dense_from_numpy(w_stack, device), dense_from_numpy(opt_stack, device),
-                    tables_from_numpy(emb_state, device), dense_from_numpy(algo_state, device),
-                    int(step))
+                    tables_from_numpy(emb_state, device),
+                    algo_state_from_numpy(algo, algo_state, device), int(step))
 
 
 def shard_states_from_numpy(plan: shards.ShardPlan, packed_state: Dict[str, Any],

@@ -39,6 +39,9 @@ _FNS: Dict[str, ctypes._CFuncPtr] = {}
 # Re-entrant: ``load`` calls ``build`` and ``c_function`` calls ``load``.
 _BUILD_LOCK = threading.RLock()
 _COUNT_LOCK = threading.Lock()
+# Small int32 index vectors (replica ids), made once per (device, ids).
+_INDEX: Dict[tuple, torch.Tensor] = {}
+_INDEX_LOCK = threading.Lock()
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -145,6 +148,25 @@ def check_launch(symbol: str, err: int) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def index_tensor(ids: Sequence[int], device: torch.device) -> torch.Tensor:
+    """``ids`` as an int32 tensor on ``device``, made once per (device, ids)
+    and kept: the replica-id lists of the sync kernels (all rows, the live
+    rows, a gossip round's participants) come from a handful of
+    memberships, so a landing copies no ids to the card after the first."""
+    key = (str(device), tuple(int(i) for i in ids))
+    with _INDEX_LOCK:
+        t = _INDEX.get(key)
+        if t is None:
+            t = _INDEX[key] = torch.tensor(key[1], dtype=torch.int32).to(device)
+        return t
+
+
+def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors' memory ranges overlap (a view and its base do)."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
 
 
 def require(cond: bool, msg: str) -> None:

@@ -18,11 +18,6 @@ _PAIR_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p
               ctypes.c_longlong, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 
 
-def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
-    a0, b0 = a.data_ptr(), b.data_ptr()
-    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
-
-
 def easgd_round_update(stack: torch.Tensor, w_ps: torch.Tensor, snapshot: torch.Tensor,
                        fired: torch.Tensor, alpha: float) -> None:
     """In place on stack (R, n, 128) f32 and w_ps (n, 128) f32. snapshot:
@@ -38,7 +33,7 @@ def easgd_round_update(stack: torch.Tensor, w_ps: torch.Tensor, snapshot: torch.
     backend.require(snapshot.shape == (F, n, lanes),
                     f"snapshot {tuple(snapshot.shape)} != {(F, n, lanes)}")
     backend.require(lanes % 4 == 0, f"lane width must be a multiple of 4, got {lanes}")
-    backend.require(not _overlaps(snapshot, stack) and not _overlaps(snapshot, w_ps),
+    backend.require(not backend.overlaps(snapshot, stack) and not backend.overlaps(snapshot, w_ps),
                     "snapshot must be a copy, not a view of the stack or the PS plane")
     fn = backend.c_function("easgd_update", "easgd_round_f32", _ARGS)
     with torch.cuda.device(dev):

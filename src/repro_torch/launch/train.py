@@ -6,14 +6,19 @@ plan-sharded embedding PSs, a background shadow thread, supervision and the
 fault-injection harness), on the CUDA card unless ``--device cpu`` is given.
 
   python -m repro_torch.launch.train dlrm --full --iters 50
-  python -m repro_torch.launch.train dlrm --threaded --full --iters 50
-  python -m repro_torch.launch.train dlrm --device cpu --tiny --iters 20
+  python -m repro_torch.launch.train dlrm --full --algo gossip --iters 50
+  python -m repro_torch.launch.train dlrm --threaded --full --algo bmuf --iters 50
+  python -m repro_torch.launch.train dlrm --device cpu --tiny --algo ma \
+      --membership-schedule "fail@20:1,join@40:1" --iters 60
   python -m repro_torch.launch.train dlrm --threaded --device cpu --tiny \
       --trainers 2 --iters 25 --batch-size 32 --crash-at 1:10 --ps-fail-at 0:5
 
-The flags are the JAX launcher's (``repro/launch/train.py dlrm``). Those of
-parts not yet ported (the cache, pipelining, membership schedules,
-checkpoints, ``--auto-*``) raise ``NotImplementedError``.
+The flags are the JAX launcher's (``repro/launch/train.py dlrm``);
+``--algo`` takes every registered sync algorithm (easgd, ma, bmuf,
+gossip). ``--membership-schedule`` drives the sim's elastic membership and,
+as in the JAX launcher, is ignored with ``--threaded``. Those of parts not
+yet ported (the cache, pipelining, checkpoints, ``--auto-*``) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,11 +48,21 @@ def _parse_slot_map(spec, cast):
     return out
 
 
+def _parse_schedule(spec):
+    """ "kind@iter:slot,..." -> [(iter, kind, slot)] (e.g. "fail@60:2")."""
+    events = []
+    if spec:
+        for part in spec.split(","):
+            kind, rest = part.split("@")
+            it, slot = rest.split(":")
+            events.append((int(it), kind, int(slot)))
+    return events or None
+
+
 def _unported(args) -> list:
     flags = {
         "--cache-rows": args.cache_rows is not None,
         "--pipeline-depth > 1": args.pipeline_depth > 1,
-        "--membership-schedule": args.membership_schedule is not None,
         "--save": args.save is not None,
         "--restore": args.restore is not None,
         "--auto-demote": args.auto_demote,
@@ -139,7 +154,8 @@ def run_dlrm(args) -> dict:
         return run_threaded(args, cfg, sync_cfg)
     sim = HogwildSim(cfg, sync_cfg, n_trainers=args.trainers, n_threads=args.threads,
                      batch_size=args.batch_size, optimizer=optim.make(args.optimizer, args.lr),
-                     seed=args.seed, device=args.device)
+                     seed=args.seed, schedule=_parse_schedule(args.membership_schedule),
+                     device=args.device)
     print(f"DLRM {'tiny' if args.tiny else 'full'} on {sim.device}: "
           f"{cfg.n_sparse_features} sparse features, {cfg.n_embedding_rows:,} embedding rows; "
           f"ELP = {elp(args.batch_size, args.threads, args.trainers):,}")
@@ -151,6 +167,9 @@ def run_dlrm(args) -> dict:
     print(f"train loss {np.mean(out['train_loss'][:10]):.5f} -> "
           f"{np.mean(out['train_loss'][-10:]):.5f}; eval {ev:.5f}; "
           f"avg_sync_gap {out['avg_sync_gap']:.2f}; EPS(sim wall) {out['examples'] / wall:.0f}")
+    if out.get("membership_events"):
+        print("membership:", [(e.kind, e.slot) + ((e.reason,) if e.reason else ())
+                              for e in out["membership_events"]])
     return {"final_train": float(np.mean(out["train_loss"][-10:])), "eval": ev,
             "avg_sync_gap": out["avg_sync_gap"]}
 
@@ -181,10 +200,12 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--seed", type=int, default=0)
     d.add_argument("--threaded", action="store_true",
                    help="the real-thread runner (ThreadedShadowRunner)")
+    d.add_argument("--membership-schedule", default=None,
+                   help='the sim\'s elastic membership, "kind@iter:slot,..." '
+                        '(kind: fail, leave, join); ignored with --threaded')
     # Flags of parts not yet ported: accepted as in the JAX launcher, then refused.
     d.add_argument("--save", default=None)
     d.add_argument("--restore", default=None)
-    d.add_argument("--membership-schedule", default=None)
     # The threaded runner's fault-injection harness.
     for flag in ("--crash-at", "--join-at", "--straggler", "--straggler-until", "--raise-at",
                  "--ps-fail-at"):

@@ -1,18 +1,27 @@
 """Nested-container helpers standing in for ``jax.tree``.
 
-Parameter trees are dicts, tuples and lists with tensors at the leaves. Dict
-keys are visited in sorted order, as ``jax.tree_util`` does, so a tree's leaf
-order, and with it every flat packing (core/flatspace.py), is the same in
-both packages.
+Parameter trees are dicts, tuples, lists and dataclass instances with
+tensors at the leaves. Dict keys are visited in sorted order, as
+``jax.tree_util`` does, so a tree's leaf order, and with it every flat
+packing (core/flatspace.py), is the same in both packages. A dataclass is
+visited field by field in declaration order, as a dataclass registered with
+``jax.tree_util.register_dataclass`` is (``core/sync.py::BMUFState``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List
 
 Tree = Any
 
 
+def _is_dataclass(x) -> bool:
+    return dataclasses.is_dataclass(x) and not isinstance(x, type)
+
+
 def leaves(tree: Tree) -> List[Any]:
+    if _is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree) for x in leaves(getattr(tree, f.name))]
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
@@ -22,6 +31,10 @@ def leaves(tree: Tree) -> List[Any]:
 
 def map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:  # noqa: A001 - jax.tree.map's name
     """Apply ``fn`` leafwise over trees of the same structure."""
+    if _is_dataclass(tree):
+        return type(tree)(**{f.name: map(fn, getattr(tree, f.name),
+                                         *(getattr(r, f.name) for r in rest))
+                             for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (tuple, list)):

@@ -8,6 +8,7 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)  # leave the other test workers their cores
 
 from repro_torch import optim  # noqa: E402
 from repro_torch.configs import dlrm_ctr  # noqa: E402
@@ -137,3 +138,158 @@ def test_tiny_threaded_run_on_the_card(gen):
     out = r.run(10)
     assert all(math.isfinite(x) for x in out["train_loss"]) and out["sync_count"] > 0
     assert out["iter_count"] == [10, 10] and easgd_pair_flat_op.launches > before
+
+
+# ---------------------------------------------------------------------------
+# K5 · MA, K6 · BMUF, K7 · gossip, and the elastic paths that run them
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.bmuf_update.ops import bmuf_sync_op, bmuf_sync_rows_op  # noqa: E402
+from repro_torch.kernels.bmuf_update.ref import (  # noqa: E402
+    bmuf_update_ref, bmuf_update_rows_ref)
+from repro_torch.kernels.gossip_update.ops import gossip_pair_flat_op, gossip_round_op  # noqa: E402
+from repro_torch.kernels.gossip_update.ref import gossip_pair_ref, gossip_round_ref  # noqa: E402
+from repro_torch.kernels.ma_update import ops as ma_ops  # noqa: E402
+from repro_torch.kernels.ma_update import ref as ma_ref  # noqa: E402
+
+SYNC_TOL = dict(rtol=1e-6, atol=1e-6)  # the same lerps; nvcc may contract into one FMA
+SIZES = [8, 256, 4096]
+
+
+def _i32(ids):
+    return torch.tensor(ids, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_replica_mean_kernels(gen, n):
+    stack = torch.randn((4, n, 128), generator=gen).cuda()
+    before = ma_ops.replica_mean_op.launches
+    torch.testing.assert_close(ma_ops.replica_mean_op(stack), ma_ref.replica_mean_ref(stack),
+                               **SYNC_TOL)
+    assert ma_ops.replica_mean_op.launches == before + 1
+    rows = _i32([0, 2, 3])
+    torch.testing.assert_close(ma_ops.replica_mean_rows_op(stack, rows),
+                               ma_ref.replica_mean_rows_ref(stack, rows), **SYNC_TOL)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_ma_pullback_kernels(gen, n):
+    stack = torch.randn((4, n, 128), generator=gen).cuda()
+    mean = torch.randn((n, 128), generator=gen).cuda()
+    ks = ma_ops.ma_sync_op(stack.clone(), mean, 0.3)
+    torch.testing.assert_close(ks, ma_ref.ma_update_ref(stack.clone(), mean, 0.3), **SYNC_TOL)
+    rows = _i32([3, 1])
+    ks = ma_ops.ma_sync_rows_op(stack.clone(), mean, rows, 0.3)
+    torch.testing.assert_close(ks, ma_ref.ma_update_rows_ref(stack.clone(), mean, rows, 0.3),
+                               **SYNC_TOL)
+    assert torch.equal(ks[0], stack[0]) and torch.equal(ks[2], stack[2])
+    src, out = stack[1:2].clone(), torch.empty_like(stack[1:2])
+    got = ma_ops.ma_sync_op(src, mean, 0.3, out=out)
+    assert got is out and torch.equal(src, stack[1:2])  # out of place: the source is only read
+    torch.testing.assert_close(out, ma_ref.ma_update_ref(stack[1:2].clone(), mean, 0.3),
+                               **SYNC_TOL)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("bm,nesterov", [(0.0, False), (0.9, True)])
+def test_bmuf_kernels(gen, n, bm, nesterov):
+    stack = torch.randn((4, n, 128), generator=gen).cuda()
+    mean = torch.randn((n, 128), generator=gen).cuda()
+    wg = torch.randn((n, 128), generator=gen).cuda()
+    vel = 0.1 * torch.randn((n, 128), generator=gen).cuda()
+    kw = dict(eta=0.9, block_momentum=bm, nesterov=nesterov)
+    got = bmuf_sync_op(stack.clone(), mean, wg.clone(), vel.clone(), 0.5, **kw)
+    want = bmuf_update_ref(stack.clone(), mean, wg.clone(), vel.clone(), 0.5, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **SYNC_TOL)
+    rows = _i32([0, 2, 3])
+    got = bmuf_sync_rows_op(stack.clone(), mean, wg.clone(), vel.clone(), rows, 0.5, **kw)
+    want = bmuf_update_rows_ref(stack.clone(), mean, wg.clone(), vel.clone(), rows, 0.5, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **SYNC_TOL)
+    assert torch.equal(got[0][1], stack[1])
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_gossip_kernels(gen, n):
+    a, b = torch.randn((n, 128), generator=gen).cuda(), torch.randn((n, 128), generator=gen).cuda()
+    a0, b0 = a.clone(), b.clone()
+    for x, y in zip(gossip_pair_flat_op(a, b, 0.4), gossip_pair_ref(a, b, 0.4)):
+        torch.testing.assert_close(x, y, **SYNC_TOL)
+        assert x.data_ptr() not in (a.data_ptr(), b.data_ptr())
+    assert torch.equal(a, a0) and torch.equal(b, b0)
+    stack = torch.randn((4, n, 128), generator=gen).cuda()
+    for land, sp, pp in (([0, 1, 2, 3], [0, 1, 2, 3], [1, 0, 3, 2]), ([1, 3], [0, 1], [1, 0])):
+        snap = stack.index_select(0, torch.tensor(land, device="cuda")) * 1.01
+        args = (_i32(land), _i32(sp), _i32(pp))
+        ks = gossip_round_op(stack.clone(), snap, *args, 0.6)
+        torch.testing.assert_close(ks, gossip_round_ref(stack.clone(), snap, *args, 0.6),
+                                   **SYNC_TOL)
+        for i in set(range(4)) - set(land):
+            assert torch.equal(ks[i], stack[i])
+
+
+def test_sync_wrappers_refuse_views_of_the_stack(gen):
+    stack = torch.randn((4, 8, 128), generator=gen).cuda()
+    rows = _i32([0, 1])
+    with pytest.raises(ValueError, match="snapshot must be a copy"):
+        gossip_round_op(stack, stack[:2], rows, rows, _i32([1, 0]), 0.5)
+    with pytest.raises(ValueError, match="separate"):
+        ma_ops.ma_sync_op(stack, stack[0], 0.5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ma_ops.replica_mean_rows_op(stack, torch.tensor([0], dtype=torch.int32))
+
+
+def test_sparse_adagrad_zero_gradient_is_a_bitwise_noop(gen):
+    """The dead-slot contract of elastic HogwildSim: a zero gradient leaves
+    every row it names, and its accumulator, bitwise unchanged."""
+    table = torch.randn((300, 16), generator=gen).cuda()
+    acc = torch.rand((300, 16), generator=gen).cuda()
+    acc[:5] = 0.0  # rows never updated before
+    idx = torch.randint(0, 60, (500, 4), generator=gen, dtype=torch.int32).cuda()
+    idx[0] = torch.arange(4, dtype=torch.int32)
+    kt, ka = sparse_adagrad_op(table.clone(), acc.clone(), idx, torch.zeros((500, 16)).cuda(),
+                               lr=0.05)
+    assert torch.equal(kt, table) and torch.equal(ka, acc)
+
+
+def test_publish_consume_fences_the_ma_round(gen):
+    """As for EASGD above: a slow producer's plane reaches MA's threaded
+    round (mean, out-of-place pull-back) only after its write."""
+    n = 4096
+    src = torch.randn((n, 128), generator=gen).cuda()
+    other = torch.randn((n, 128), generator=gen).cuda()
+    fs = FlatSpace.from_tree({"x": torch.zeros((n * 128,))})
+    rnd = algorithms.get("ma").make_shadow_round(sync.SyncConfig(algo="ma", alpha=0.5), fs)
+    producer, consumer = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(producer):
+        plane = torch.zeros_like(src)
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning before the write
+        plane.copy_(src)
+        pub = streams.publish(plane)
+    with torch.cuda.stream(consumer):
+        ws = [streams.consume(pub), other]
+        _, n_syncs = rnd(ws, None)
+    torch.cuda.synchronize()
+    mean = 0.5 * (src + other)
+    assert n_syncs == 1 and ws[0] is not plane
+    torch.testing.assert_close(ws[0], 0.5 * src + 0.5 * mean, rtol=0, atol=1e-6)
+    torch.testing.assert_close(ws[1], 0.5 * other + 0.5 * mean, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("algo", ["ma", "bmuf", "gossip"])
+def test_tiny_elastic_sim_on_the_card(gen, algo):
+    """Under the reference's schedule the card's run follows the CPU's."""
+    sched = [(5, "fail", 1), (9, "join", 1), (11, "join", 3)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        sim = runners.HogwildSim(dlrm_ctr.tiny(), sync.SyncConfig(algo=algo, gap=4, delay=1),
+                                 n_trainers=3, n_threads=2, batch_size=32,
+                                 optimizer=optim.adagrad(0.02), schedule=sched, device=dev)
+        outs[dev] = sim.run(16)
+    a, b = outs["cuda"], outs["cpu"]
+    assert a["sync_count"] == b["sync_count"] > 0
+    torch.testing.assert_close(torch.tensor(a["train_loss"]), torch.tensor(b["train_loss"]),
+                               rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(a["state"].w_stack.cpu(), b["state"].w_stack, rtol=1e-4, atol=1e-5)

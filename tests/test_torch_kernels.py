@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)  # leave the other test workers their cores
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -289,8 +290,15 @@ def test_base_shadow_round_and_join_hooks_match_jax():
     j_new, _ = jalgorithms.SyncAlgorithm.on_join(None, jnp.asarray(stack), 3, None, active, None)
     t_new, _ = talgorithms.SyncAlgorithm.on_join(None, _t(stack), 3, None, active, None)
     np.testing.assert_allclose(t_new.numpy(), np.asarray(j_new), **TOL)
-    with pytest.raises(NotImplementedError, match="replica_mean_rows"):
-        base.on_join_flat(torch.stack(t_ws), 2, None, active[:3], None, tfs)
+    # the flat join bootstrap is the live mean through K5 replica_mean_rows
+    buf = np.stack(ws)
+    jfs = jflatspace.FlatSpace.from_tree({"x": jnp.zeros((256 * LANE,))})
+    j_buf, _ = jalgorithms.SyncAlgorithm().on_join_flat(jnp.asarray(buf), 2, None, active[:3],
+                                                        None, jfs)
+    t_in = _t(buf)
+    t_buf, _ = base.on_join_flat(t_in, 2, None, active[:3], None, tfs)
+    np.testing.assert_allclose(t_buf.numpy(), np.asarray(j_buf), **TOL)
+    assert np.array_equal(t_in.numpy(), buf)  # out of place
 
 
 def test_easgd_join_flat_adopts_the_ps_plane():
@@ -353,3 +361,232 @@ def test_concurrent_first_loads_build_once(monkeypatch):
         t.join(timeout=30)
     assert not any(t.is_alive() for t in threads)
     assert calls == [["easgd_update"]] and len(libs) == 4 and len({id(x) for x in libs}) == 1
+
+
+# ---------------------------------------------------------------------------
+# K5 · MA mean and pull-back, K6 · BMUF landing, K7 · gossip
+# ---------------------------------------------------------------------------
+
+from repro.core import sync as jsync_  # noqa: E402
+from repro.kernels.bmuf_update.ops import bmuf_sync_op as j_bmuf_sync_op  # noqa: E402
+from repro.kernels.bmuf_update.ops import bmuf_sync_rows_op as j_bmuf_sync_rows_op  # noqa: E402
+from repro.kernels.bmuf_update.ref import bmuf_update_ref as j_bmuf_update_ref  # noqa: E402
+from repro.kernels.bmuf_update.ref import bmuf_update_rows_ref as j_bmuf_rows_ref  # noqa: E402
+from repro.kernels.gossip_update.ops import gossip_pair_flat_op as j_gossip_pair_op  # noqa: E402
+from repro.kernels.gossip_update.ops import gossip_round_op as j_gossip_round_op  # noqa: E402
+from repro.kernels.gossip_update.ref import gossip_pair_ref as j_gossip_pair_ref  # noqa: E402
+from repro.kernels.gossip_update.ref import gossip_round_ref as j_gossip_round_ref  # noqa: E402
+from repro.kernels.ma_update import ops as j_ma_ops  # noqa: E402
+from repro.kernels.ma_update import ref as j_ma_ref  # noqa: E402
+from repro_torch.kernels.bmuf_update.ops import bmuf_sync_op, bmuf_sync_rows_op  # noqa: E402
+from repro_torch.kernels.bmuf_update.ref import (  # noqa: E402
+    bmuf_update_ref, bmuf_update_rows_ref)
+from repro_torch.kernels.gossip_update.ops import gossip_pair_flat_op, gossip_round_op  # noqa: E402
+from repro_torch.kernels.gossip_update.ref import gossip_pair_ref, gossip_round_ref  # noqa: E402
+from repro_torch.kernels.ma_update import ops as ma_ops  # noqa: E402
+from repro_torch.kernels.ma_update import ref as ma_ref  # noqa: E402
+
+ROWS_CASES = [[0], [0, 2, 3], [3, 1], [0, 1, 2, 3]]
+
+
+def _stack(seed, n_rep=R, n_rows=NR):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n_rep, n_rows, LANE)).astype(np.float32), rng
+
+
+def _i32(ids):
+    return np.asarray(ids, np.int32)
+
+
+def test_replica_mean_matches_jax():
+    stack, _ = _stack(11)
+    want = np.asarray(j_ma_ops.replica_mean_op(jnp.asarray(stack)))
+    want_ref = np.asarray(j_ma_ref.replica_mean_ref(jnp.asarray(stack)))
+    for got in (ma_ops.replica_mean_op(_t(stack)), ma_ref.replica_mean_ref(_t(stack))):
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_allclose(got.numpy(), want_ref, **TOL)
+
+
+@pytest.mark.parametrize("rows", ROWS_CASES)
+def test_replica_mean_rows_matches_jax(rows):
+    stack, _ = _stack(12 + len(rows))
+    r = _i32(rows)
+    want = np.asarray(j_ma_ops.replica_mean_rows_op(jnp.asarray(stack), jnp.asarray(r)))
+    want_ref = np.asarray(j_ma_ref.replica_mean_rows_ref(jnp.asarray(stack), jnp.asarray(r)))
+    for got in (ma_ops.replica_mean_rows_op(_t(stack), _t(r)),
+                ma_ref.replica_mean_rows_ref(_t(stack), _t(r))):
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_allclose(got.numpy(), want_ref, **TOL)
+
+
+@pytest.mark.parametrize("alpha", [0.4, 1.0])
+def test_ma_sync_matches_jax(alpha):
+    stack, rng = _stack(20)
+    mean = rng.standard_normal((NR, LANE)).astype(np.float32)
+    want = np.asarray(j_ma_ops.ma_sync_op(jnp.asarray(stack), jnp.asarray(mean), alpha))
+    want_ref = np.asarray(j_ma_ref.ma_update_ref(jnp.asarray(stack), jnp.asarray(mean), alpha))
+    ts = _t(stack)
+    got = ma_ops.ma_sync_op(ts, _t(mean), alpha)
+    assert got is ts  # in place
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(ma_ref.ma_update_ref(_t(stack), _t(mean), alpha).numpy(),
+                               want_ref, **TOL)
+    # out of place: the threaded round's pull-back reads the plane, writes a new one
+    src, out = _t(stack[1:2]), torch.empty((1, NR, LANE))
+    got = ma_ops.ma_sync_op(src, _t(mean), alpha, out=out)
+    assert got is out
+    np.testing.assert_array_equal(src.numpy(), stack[1:2])
+    np.testing.assert_allclose(out.numpy(), want[1:2], **TOL)
+
+
+@pytest.mark.parametrize("rows", ROWS_CASES)
+def test_ma_sync_rows_matches_jax(rows):
+    stack, rng = _stack(30 + len(rows))
+    mean = rng.standard_normal((NR, LANE)).astype(np.float32)
+    r = _i32(rows)
+    want = np.asarray(j_ma_ops.ma_sync_rows_op(jnp.asarray(stack), jnp.asarray(mean),
+                                               jnp.asarray(r), 0.3))
+    want_ref = np.asarray(j_ma_ref.ma_update_rows_ref(jnp.asarray(stack), jnp.asarray(mean),
+                                                      jnp.asarray(r), 0.3))
+    for fn in (ma_ops.ma_sync_rows_op, ma_ref.ma_update_rows_ref):
+        ts = _t(stack)
+        got = fn(ts, _t(mean), _t(r), 0.3)
+        assert got is ts
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_allclose(got.numpy(), want_ref, **TOL)
+        for i in sorted(set(range(R)) - set(rows)):  # dead rows untouched
+            assert np.array_equal(got[i].numpy(), stack[i])
+
+
+@pytest.mark.parametrize("bm,nesterov", [(0.0, False), (0.8, False), (0.9, True)])
+@pytest.mark.parametrize("rows", [None, [0, 2, 3]])
+def test_bmuf_sync_matches_jax_multi_round(bm, nesterov, rows):
+    """State (w_global, velocity) carries across three rounds, as in the
+    reference's test (tests/test_flatspace.py:170-191)."""
+    stack, rng = _stack(40 + int(bm * 10))
+    snap = stack + 0.1 * rng.standard_normal(stack.shape).astype(np.float32)
+    wg = stack.mean(0)
+    vel = np.zeros_like(wg)
+    kw = dict(eta=0.9, block_momentum=bm, nesterov=nesterov)
+    j = [jnp.asarray(x) for x in (stack, wg, vel)]
+    jr = [jnp.asarray(x) for x in (stack, wg, vel)]
+    t = [_t(x) for x in (stack, wg, vel)]
+    tr = [_t(x) for x in (stack, wg, vel)]
+    j_snap, t_snap = jnp.asarray(snap), _t(snap)
+    r = None if rows is None else _i32(rows)
+    for _ in range(3):
+        if rows is None:
+            j = j_bmuf_sync_op(j[0], j_ma_ops.replica_mean_op(j_snap), j[1], j[2], 0.5, **kw)
+            jr = j_bmuf_update_ref(jr[0], j_ma_ref.replica_mean_ref(j_snap), jr[1], jr[2], 0.5,
+                                   **kw)
+            got = bmuf_sync_op(t[0], ma_ops.replica_mean_op(t_snap), t[1], t[2], 0.5, **kw)
+            got_r = bmuf_update_ref(tr[0], ma_ref.replica_mean_ref(t_snap), tr[1], tr[2], 0.5,
+                                    **kw)
+        else:
+            jrows = jnp.asarray(r)
+            j = j_bmuf_sync_rows_op(j[0], j_ma_ops.replica_mean_rows_op(j_snap, jrows), j[1],
+                                    j[2], jrows, 0.5, **kw)
+            jr = j_bmuf_rows_ref(jr[0], j_ma_ref.replica_mean_rows_ref(j_snap, jrows),
+                                 jr[1], jr[2], jrows, 0.5, **kw)
+            got = bmuf_sync_rows_op(t[0], ma_ops.replica_mean_rows_op(t_snap, _t(r)), t[1],
+                                    t[2], _t(r), 0.5, **kw)
+            got_r = bmuf_update_rows_ref(tr[0], ma_ref.replica_mean_rows_ref(t_snap, _t(r)),
+                                         tr[1], tr[2], _t(r), 0.5, **kw)
+        assert all(a is b for a, b in zip(got, t)) and all(a is b for a, b in zip(got_r, tr))
+        j_snap, t_snap = j[0].copy(), t[0].clone()  # the next launch snapshot
+    for a, b in zip(t, j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    for a, b in zip(tr, jr):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    if rows is not None:
+        assert np.array_equal(t[0][1].numpy(), stack[1])  # the dead row is untouched
+
+
+@pytest.mark.parametrize("alpha", [0.5, 1.0, 0.1])
+def test_gossip_pair_matches_jax(alpha):
+    _, rng = _stack(50)
+    a = rng.standard_normal((NR, LANE)).astype(np.float32)
+    b = rng.standard_normal((NR, LANE)).astype(np.float32)
+    want = j_gossip_pair_op(jnp.asarray(a), jnp.asarray(b), alpha)
+    want_ref = j_gossip_pair_ref(jnp.asarray(a), jnp.asarray(b), alpha)
+    ta, tb = _t(a), _t(b)
+    for got in (gossip_pair_flat_op(ta, tb, alpha), gossip_pair_ref(ta, tb, alpha)):
+        assert got[0] is not ta and got[1] is not tb  # out of place
+        for g, w, wr in zip(got, want, want_ref):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+            np.testing.assert_allclose(g.numpy(), np.asarray(wr), **TOL)
+    np.testing.assert_array_equal(ta.numpy(), a)
+    np.testing.assert_array_equal(tb.numpy(), b)
+
+
+@pytest.mark.parametrize("land,self_pos,partner_pos", [
+    ([0, 1, 2, 3], [0, 1, 2, 3], [1, 0, 3, 2]),  # P = 4: two pairs
+    ([1, 3], [0, 1], [1, 0]),                    # P = 2: one pair
+    ([2], [0], [1]),                             # a live row whose partner died in flight
+])
+def test_gossip_round_matches_jax(land, self_pos, partner_pos):
+    stack, rng = _stack(60 + len(land))
+    snap = rng.standard_normal((max(max(self_pos), max(partner_pos)) + 1, NR, LANE))
+    snap = snap.astype(np.float32)
+    args = [_i32(x) for x in (land, self_pos, partner_pos)]
+    want = np.asarray(j_gossip_round_op(jnp.asarray(stack), jnp.asarray(snap),
+                                        *map(jnp.asarray, args), 0.6))
+    want_ref = np.asarray(j_gossip_round_ref(jnp.asarray(stack), jnp.asarray(snap),
+                                             *map(jnp.asarray, args), 0.6))
+    for fn in (gossip_round_op, gossip_round_ref):
+        ts = _t(stack)
+        got = fn(ts, _t(snap), *map(_t, args), 0.6)
+        assert got is ts  # in place
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        np.testing.assert_allclose(got.numpy(), want_ref, **TOL)
+        for i in sorted(set(range(R)) - set(land)):
+            assert np.array_equal(got[i].numpy(), stack[i])
+
+
+def test_sync_wrappers_need_a_live_row():
+    """As the TPU kernels assert: an empty row set never reaches a kernel
+    (the runners guard an all-dead cohort before calling)."""
+    stack, mean = torch.zeros((2, 8, LANE)), torch.zeros((8, LANE))
+    none = torch.zeros((0,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="at least one"):
+        ma_ops.replica_mean_rows_op(stack, none)
+    with pytest.raises(ValueError, match="at least one"):
+        ma_ops.ma_sync_rows_op(stack, mean, none, 0.5)
+    with pytest.raises(ValueError, match="at least one"):
+        bmuf_sync_rows_op(stack, mean, mean.clone(), mean.clone(), none, 0.5)
+    with pytest.raises(ValueError, match="at least one"):
+        gossip_round_op(stack, stack.clone(), none, none, none, 0.5)
+
+
+def test_cpu_sync_wrappers_do_not_count_launches():
+    ops = (ma_ops.replica_mean_op, ma_ops.replica_mean_rows_op, ma_ops.ma_sync_op,
+           ma_ops.ma_sync_rows_op, bmuf_sync_op, bmuf_sync_rows_op, gossip_pair_flat_op,
+           gossip_round_op)
+    before = [op.launches for op in ops]
+    stack, plane = torch.ones((2, 8, LANE)), torch.ones((8, LANE))
+    rows = torch.tensor([1], dtype=torch.int32)
+    ma_ops.replica_mean_op(stack)
+    ma_ops.replica_mean_rows_op(stack, rows)
+    ma_ops.ma_sync_op(stack, plane, 0.5)
+    ma_ops.ma_sync_rows_op(stack, plane, rows, 0.5)
+    bmuf_sync_op(stack, plane, plane.clone(), plane.clone(), 0.5)
+    bmuf_sync_rows_op(stack, plane, plane.clone(), plane.clone(), rows, 0.5)
+    gossip_pair_flat_op(plane, plane, 0.5)
+    gossip_round_op(stack, stack.clone(), rows, torch.tensor([0], dtype=torch.int32),
+                    torch.tensor([1], dtype=torch.int32), 0.5)
+    assert [op.launches for op in ops] == before
+
+
+def test_bmuf_plane_kernel_ref_is_the_oracle_round():
+    """The flat landing (launch mean + K6) is ``core.sync.bmuf_round`` on
+    the launch snapshot, in both packages."""
+    stack, rng = _stack(70)
+    snap = stack + 0.05
+    wg, vel = stack.mean(0) + 0.1, rng.standard_normal((NR, LANE)).astype(np.float32) * 0.01
+    kw = dict(eta=0.7, block_momentum=0.5, nesterov=True)
+    o_stack, o_state = jsync_.bmuf_round({"w": jnp.asarray(stack)}, jsync_.BMUFState(
+        w_global={"w": jnp.asarray(wg)}, velocity={"w": jnp.asarray(vel)}), 0.4,
+        snapshot={"w": jnp.asarray(snap)}, **kw)
+    t = bmuf_sync_op(_t(stack), ma_ops.replica_mean_op(_t(snap)), _t(wg), _t(vel), 0.4, **kw)
+    for a, b in zip(t, (o_stack["w"], o_state.w_global["w"], o_state.velocity["w"])):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)

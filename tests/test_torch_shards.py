@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)  # leave the other test workers their cores
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)  # leave the other test workers their cores
 jax = pytest.importorskip("jax")
 
 from repro import optim as joptim  # noqa: E402
@@ -41,9 +42,9 @@ PARITY_ITERS = 12
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_parity_run(engine):
+def _jax_parity_run(engine, algo="easgd"):
     r = jrunners.ThreadedShadowRunner(
-        jcfg.tiny(), jsync.SyncConfig(mode="fixed_rate", gap=4, engine=engine),
+        jcfg.tiny(), jsync.SyncConfig(algo=algo, mode="fixed_rate", gap=4, engine=engine),
         optimizer=joptim.adagrad(0.02), **PARITY)
     out = r.run(PARITY_ITERS)
     kw, ke = jax.random.split(jax.random.PRNGKey(PARITY["seed"]))
@@ -234,3 +235,89 @@ def test_threads_share_one_event_discipline_on_cpu():
     t.start()
     t.join(timeout=30)
     assert not t.is_alive() and pub.event is None and got[0] is pub.value
+
+
+@pytest.mark.parametrize("engine", ["flat", "pytree"])
+@pytest.mark.parametrize("algo", ["ma", "bmuf"])
+def test_one_trainer_fixed_rate_ma_bmuf_match_jax(jax_draws, algo, engine):
+    """MA's and BMUF's threaded rounds (mean, BMUF's global step, the
+    out-of-place pull-back) train the one trainer as the JAX runner does."""
+    w0, packed0, j_syncs, j_loss, j_w, j_emb = _jax_parity_run(engine, algo)
+    jax_draws(w0, packed0)
+    r = runners.ThreadedShadowRunner(
+        CFG, sync.SyncConfig(algo=algo, mode="fixed_rate", gap=4, engine=engine),
+        optimizer=optim.adagrad(0.02), device="cpu", **PARITY)
+    out = r.run(PARITY_ITERS)
+    assert out["sync_count"] == j_syncs == PARITY_ITERS // 4
+    np.testing.assert_allclose(out["train_loss"], j_loss, **TRAJ)
+    for a, b in zip(T.leaves(out["w"][0]), jax.tree.leaves(j_w)):
+        np.testing.assert_allclose(a.numpy(), b, **TRAJ)
+    for k in ("table", "acc"):
+        np.testing.assert_allclose(out["emb_state"][k].numpy(), j_emb[k], **TRAJ)
+
+
+def _algo_runner(algo, n_trainers=2, mode="shadow", **kw):
+    return runners.ThreadedShadowRunner(
+        CFG, sync.SyncConfig(algo=algo, alpha=0.5, mode=mode, gap=3), n_trainers=n_trainers,
+        batch_size=16, optimizer=optim.adagrad(0.02), sync_sleep_s=0.005, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("algo", ["ma", "bmuf", "gossip"])
+def test_two_trainer_shadow_run_syncs_and_trains_other_algos(algo):
+    r = _algo_runner(algo)
+    r.warmup()
+    out = r.run(10)
+    assert out["sync_count"] > 0 and out["sync_rounds"] > 0
+    assert out["iter_count"] == [10, 10]
+    assert all(math.isfinite(x) for x in out["train_loss"])
+    assert not out["sync_degraded"] and out["sync_restarts"] == 0
+
+
+@pytest.mark.parametrize("engine", ["flat", "pytree"])
+def test_ma_join_bootstraps_from_the_live_mean(engine, monkeypatch):
+    """Under MA a joiner's plane is the live cohort's mean (the base
+    ``join_plane_flat``: K5 ``replica_mean_rows``), bitwise against the port's
+    own plain mean of the donors' planes the join hook was handed (trainers
+    keep publishing new planes meanwhile, so they are read inside the hook)."""
+    from repro_torch.kernels.ma_update.ref import replica_mean_rows_ref
+
+    algo = runners.algorithms.get("ma")
+    seen = {}
+    if engine == "flat":
+        orig = algo.join_plane_flat
+
+        def spy(stack, state, active, *rest):
+            seen["stack"], seen["active"] = stack.clone(), np.asarray(active)
+            plane, state = orig(stack, state, active, *rest)
+            seen["w"] = plane.clone()
+            return plane, state
+
+        monkeypatch.setattr(algo, "join_plane_flat", spy)
+    else:
+        orig = algo.on_join
+
+        def spy(stack, slot, state, active, *rest):
+            seen["stack"] = T.map(torch.clone, stack)
+            seen["slot"], seen["active"] = slot, np.asarray(active)
+            new, state = orig(stack, slot, state, active, *rest)
+            seen["w"] = T.map(lambda x: x[slot].clone(), new)
+            return new, state
+
+        monkeypatch.setattr(algo, "on_join", spy)
+    r = runners.ThreadedShadowRunner(
+        CFG, sync.SyncConfig(algo="ma", mode="shadow", gap=3, engine=engine), n_trainers=3,
+        batch_size=16, optimizer=optim.adagrad(0.02), sync_sleep_s=0.005,
+        fault_spec=FaultSpec(join_at={2: 4}), device="cpu")
+    out = r.run(10)
+    assert ("activate", 2) in [(e.kind, e.slot) for e in out["membership_events"]]
+    rows = torch.tensor([0, 1], dtype=torch.int32)
+    if engine == "flat":  # the stack holds the two donors alone
+        assert seen["active"].tolist() == [True, True] and seen["stack"].shape[0] == 2
+        assert torch.equal(seen["w"], replica_mean_rows_ref(seen["stack"], rows))
+    else:  # the compact stack holds the two donors, then the joiner; the
+        # tree join is the masked mean: sum over live rows / count
+        assert seen["slot"] == 2 and seen["active"].tolist() == [True, True, False]
+        for got, x in zip(T.leaves(seen["w"]), T.leaves(seen["stack"])):
+            torch.testing.assert_close(got, replica_mean_rows_ref(x, rows), rtol=1e-6,
+                                       atol=1e-7)
+    assert out["iter_count"][2] == 6 and math.isfinite(out["train_loss"][2])

@@ -28,7 +28,17 @@ Phases, each of which asserts (any failure exits non-zero):
      trainer joins (its bootstrap is the live mean, K5);
   6. the tiny elastic runs of MA, BMUF and Gossip on the card held against
      the CPU's;
-  7. the kernel table as one JSON line, then the result line.
+  7. the serving path: the DLRM state released (device memory before and
+     after), phi3-medium-14b at the full width of its CONFIG (bf16, 14.7 B
+     parameters drawn on the card), K9 held against its plain version on
+     layer 0's q/k/v at B=4 x 2048 and at the reference tests' shapes, and
+     timed there back to back, after an L2 flush and after a GEMM; then
+     ``launch/serve.py``'s warm-up at the timed shape, 5 timed prefills
+     (median and spread) + 31 greedy decode steps (exactly 40 K9 launches a
+     prefill, finite logits), a profiled prefill (with the SM clock sampled)
+     and decode, and a reduced phi3 on the card held against the same
+     weights on the CPU;
+  8. the kernel table as one JSON line, then the result line.
 """
 import gc
 import json
@@ -39,10 +49,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# Device-memory rate by card (NVIDIA data sheets); the bound of every kernel
-# here is bytes over this rate.
+# Device-memory rate by card (NVIDIA data sheets); a kernel's bound is the
+# larger of its bytes over this rate and its operations over the peak rate
+# for their type (FP32_RATE, BF16_RATE).
 MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12, "H200": 4.8e12}
 FP32_RATE = 67e12  # H100 SXM, non-tensor fp32 (data sheet)
+BF16_RATE = 989e12  # H100 SXM, dense bf16 tensor cores (data sheet)
 R, M, B = 4, 4, 128
 TIMED_ITERS, WARM_ITERS = 20, 3
 THREADED_ITERS, PROFILED_ITERS = 40, 10  # per trainer thread
@@ -55,6 +67,26 @@ ELASTIC_ITERS = 12
 # the reference's schedule (tests/test_membership.py:242), for the tiny runs
 TINY_SCHED = ((5, "fail", 1), (9, "join", 1), (11, "join", 3))
 SYNC_TOL = 1e-6  # the same lerps; nvcc may contract a multiply-add into one FMA
+# the serving path: phi3-medium-14b at full width, B prompts of PROMPT tokens
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "phi3-medium-14b", 4, 2048, 32
+PREFILL_REPS = 5  # timed prefills after the warm-up at the same shape; the median is reported
+# K9 tolerances (atol = rtol): f32 the reference's own (tests/test_kernels.py)
+ATTN_TOL = {"float32": 2e-4}
+# bf16 on phi3's prefill shape: outputs there are ~0.04, so the reference's
+# 3e-2 (set for S <= 384) would admit errors as large as the values; the
+# output is rounded to bf16 once (half an ulp, 2^-9 relative), so
+# atol 6e-3, rtol 1e-2 elementwise and 1e-2 in the relative norm
+ATTN_BF16_ATOL, ATTN_BF16_RTOL, ATTN_BF16_REL_NORM = 6e-3, 1e-2, 1e-2
+# K9 against its plain version: (B, S, H, KV heads, d, causal), f32
+ATTN_CASES = ((1, 128, 2, 2, 64, True), (1, 128, 2, 2, 64, False), (1, 100, 2, 2, 64, True),
+              (1, 100, 2, 2, 64, False), (2, 256, 8, 1, 128, True))
+
+# torch.profiler traces: the marker kernel (torch.cuda._sleep's) that opens
+# and closes the recorded run, its length, the card's clock for the pad
+# spins, and the pad before the run in each attempt (a trace that lost
+# device events is made again with the next)
+MARKER_KERNEL, MARKER_CYCLES, SPIN_HZ = "spin_kernel", 10_000, 1.98e9
+TRACE_PADS_S = (0.05, 0.25, 1.0)
 
 # the hand-written kernels' __global__ names, as the profiler reports them,
 # by the source (kernels/<source>/csrc/<source>.cu) that must build each
@@ -68,8 +100,11 @@ DEVICE_NAMES_BY_SOURCE = {
                   "ma_update_rows": "ma_pullback_rows_kernel"},
     "bmuf_update": {"bmuf_update": "bmuf_rows_kernel", "bmuf_update_rows": "bmuf_rows_kernel"},
     "gossip_update": {"gossip_pair": "gossip_pair_kernel", "gossip_round": "gossip_round_kernel"},
+    "interaction": {"interaction": "interaction_kernel"},
+    "flash_attention": {"flash_attention": "flash_attention_kernel"},
 }
 KERNELS = tuple(DEVICE_NAMES_BY_SOURCE)
+K1 = DEVICE_NAMES_BY_SOURCE["embedding_bag"]["embedding_bag"]
 DEVICE_NAMES = {k: g for names in DEVICE_NAMES_BY_SOURCE.values() for k, g in names.items()}
 
 
@@ -99,49 +134,171 @@ def time_ms(torch, fn, reps=20, warm=3):
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(prof):
-    """{kernel or copy name: (total device ms, count)} from a torch.profiler trace."""
+def device_kernels(events):
+    """{kernel or copy name: (total device ms, count)} from torch.profiler events."""
     from torch.autograd import DeviceType
 
     by_name = {}
-    for ev in prof.events():
+    for ev in events:
         if ev.device_type == DeviceType.CUDA:
             tot, cnt = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3, cnt + 1)
     return by_name
 
 
-def device_ms(torch, fn, reps=20):
-    """Device time of everything one call of ``fn`` launches (torch.profiler,
-    CUPTI), as {kernel name: ms per call}. Raises if the trace is empty."""
-    from torch.profiler import ProfilerActivity, profile
+def body_events(events):
+    """The device events between the opening and the closing marker spin of
+    a trace (the last two spins), or None where either marker or every event
+    between them is missing. Both markers kept means that nothing between
+    them fell outside the trace's window: the profiler drops device events
+    whose time, on the card's clock, falls before the window opened, and
+    such runs lost a trace's first launches or all of them. Device events
+    outside the markers (the profiler's own) are left out."""
+    from torch.autograd import DeviceType
 
-    fn()
+    dev = [ev for ev in events if ev.device_type == DeviceType.CUDA]
+    marks = sorted((ev.time_range for ev in dev if MARKER_KERNEL in ev.name),
+                   key=lambda r: r.start)
+    if len(marks) < 2:
+        return None
+    opened, closed = marks[-2].end, marks[-1].start
+    body = [ev for ev in dev if MARKER_KERNEL not in ev.name
+            and ev.time_range.start >= opened and ev.time_range.end <= closed]
+    return body or None
+
+
+def lost_summary(events):
+    """What a trace that was not kept held: its device events, its marker
+    spins, and the names of the device events that are not spins."""
+    from torch.autograd import DeviceType
+
+    dev = [ev for ev in events if ev.device_type == DeviceType.CUDA]
+    names = sorted({ev.name[:60] for ev in dev if MARKER_KERNEL not in ev.name})
+    return {"device_events": len(dev),
+            "marker_spins": sum(MARKER_KERNEL in ev.name for ev in dev),
+            "names": names[:8]}
+
+
+def traced(torch, body, warm=True, host=False, check=None):
+    """(body's last result, its wall ms, the device events of its recorded
+    run, and, if ``host``, the host's key averages), from a torch.profiler
+    trace. ``body`` runs in the profiler's warm-up cycle (if ``warm``; its
+    events are thrown away), then in the recorded one between two marker
+    spins, after a spin of the card as long as the attempt's pad. An attempt
+    whose trace lost device events (``body_events``, or ``check(events)``
+    false) is made again with a longer pad; where every attempt lost some,
+    the events are None and the caller times with CUDA events or reports the
+    figure as not measured."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    for attempt, pad_s in enumerate(TRACE_PADS_S):
+        kept = {}
+
+        def ready(p):
+            kept["events"] = list(p.events())
+            kept["host"] = list(p.key_averages()) if host else None
+
+        torch.cuda.synchronize()
+        with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=ready) as prof:
+            if warm:
+                body()
+                torch.cuda.synchronize()
+            prof.step()
+            torch.cuda._sleep(int(pad_s * SPIN_HZ))
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()  # the body may run on other streams
+            t0 = time.perf_counter()
+            out = body()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+            prof.step()
+        events = body_events(kept.get("events", []))
+        if events is not None and (check is None or check(events)):
+            return out, wall_ms, events, kept.get("host")
+        emit({"phase": "trace_lost_events", "attempt": attempt, "pad_s": pad_s,
+              **lost_summary(kept.get("events", []))})
+    return out, wall_ms, None, None
+
+
+def event_ms(torch, fn, reps=20, warm=3):
+    """Mean device time of one call of ``fn``, from CUDA events recorded
+    around each of ``reps`` calls queued behind a spin, so that the card
+    never waits on the host: the stand-in where the profiler lost events."""
+    for _ in range(warm):
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda._sleep(int(0.05 * SPIN_HZ))
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def launched(dev_name, n):
+    """A trace check: the kernel ``dev_name`` launched ``n`` times."""
+    return lambda events: sum(c for k, (_, c) in device_kernels(events).items()
+                              if dev_name in k) == n
+
+
+def device_ms(torch, fn, reps=20, check=None):
+    """Device time of everything ``reps`` calls of ``fn`` launch
+    (torch.profiler, CUPTI), as {kernel name: (total ms, launches)}, or None
+    where every trace lost events."""
+
+    def body():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    by_name = {n: t / reps for n, (t, _) in device_kernels(prof).items()}
-    assert by_name, "the profiler recorded no device activity"
-    return by_name
+
+    events = traced(torch, body, check=check)[2]
+    return None if events is None else device_kernels(events)
 
 
-def timings(torch, kernel_fn, plain_fn, dev_name, library_fn=None):
-    """The kernel's device time alone (``ms``) and with its wrapper's other
-    launches (``op_ms``), the plain version's and the library call's device
-    time, and event-timed calls of the wrapper and the plain version."""
-    op = device_ms(torch, kernel_fn)
-    ms = sum(t for n, t in op.items() if dev_name in n)
-    assert ms > 0, (dev_name, list(op))
-    return dict(ms=ms, op_ms=sum(op.values()), call_ms=time_ms(torch, kernel_fn),
-                plain_ms=sum(device_ms(torch, plain_fn).values()),
-                plain_call_ms=time_ms(torch, plain_fn),
-                library_ms=sum(device_ms(torch, library_fn).values()) if library_fn else None)
+def timings(torch, kernel_fn, plain_fn, dev_name, library_fn=None, reps=20):
+    """The kernel's device time a launch (``ms``; each wrapper call launches
+    it once) and with its wrapper's other launches (``op_ms``), the plain
+    version's and the library call's device time a call, and event-timed
+    calls of the wrapper and the plain version. A figure whose traces all
+    lost events is timed with ``event_ms`` instead and named in
+    ``event_timed``."""
+    event_timed = []
+    op = device_ms(torch, kernel_fn, reps, check=launched(dev_name, reps))
+    if op is None:
+        event_timed += ["ms", "op_ms"]
+        ms = op_ms = event_ms(torch, kernel_fn, reps)
+        n_traced = 0
+    else:
+        n_traced = reps
+        hits = [t for n, (t, _) in op.items() if dev_name in n]
+        ms, op_ms = sum(hits) / reps, sum(t for t, _ in op.values()) / reps
+
+    def per_call(key, fn):
+        by_name = device_ms(torch, fn, reps)
+        if by_name is None:
+            event_timed.append(key)
+            return event_ms(torch, fn, reps)
+        return sum(t for t, _ in by_name.values()) / reps
+
+    out = dict(ms=ms, op_ms=op_ms, traced_launches=n_traced, traced_calls=reps,
+               call_ms=time_ms(torch, kernel_fn, reps),
+               plain_ms=per_call("plain_ms", plain_fn),
+               plain_call_ms=time_ms(torch, plain_fn, reps),
+               library_ms=per_call("library_ms", library_fn) if library_fn else None)
+    if event_timed:
+        out["event_timed"] = event_timed
+    return out
 
 
-def bound(nbytes, flops, mem_rate):
-    t_bytes, t_ops = nbytes / mem_rate * 1e3, flops / FP32_RATE * 1e3
+def bound(nbytes, flops, mem_rate, op_rate=FP32_RATE):
+    t_bytes, t_ops = nbytes / mem_rate * 1e3, flops / op_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -449,6 +606,286 @@ def check_sync_kernels(torch, st, mem_rate):
     return rows
 
 
+def check_interaction(torch, mem_rate):
+    """Phase 3, K8: the interaction kernel at DLRM CONFIG's shape, z of the
+    ELP's R*M*B samples x (1 + 26) features x d = 64, against its plain
+    version. Its wrapper is its only path, as in the reference (whose DLRM
+    computes the same dots with einsum). Returns the table row."""
+    from repro_torch.configs import dlrm_ctr
+    from repro_torch.kernels.interaction.ops import interaction_op
+    from repro_torch.kernels.interaction.ref import interaction_ref
+
+    cfg = dlrm_ctr.CONFIG
+    n, F, d = R * M * B, cfg.n_sparse_features + 1, cfg.embedding_dim
+    z = torch.randn((n, F, d), generator=torch.Generator().manual_seed(3)).to("cuda")
+    got = one_launch(interaction_op, lambda: interaction_op(z))
+    want = interaction_ref(z)
+    err = max_err([got], [want])
+    tol = 1e-5  # the reference's (tests/test_kernels.py); f32 dots summed in another order
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    P = F * (F - 1) // 2
+    iu, ju = torch.triu_indices(F, F, offset=1, device="cuda")
+    row = dict(name="interaction", route="cuda",
+               source="src/repro_torch/kernels/interaction/csrc/interaction.cu",
+               replaces="src/repro/kernels/interaction/interaction.py:35",
+               max_abs_err=err, tol=tol,
+               **dict(zip(("bound_ms", "bound_by"),
+                          bound(z.numel() * 4 + n * P * 4, 2 * n * P * d, mem_rate))),
+               # library: two calls, the Gram matrix then its triangle
+               **timings(torch, lambda: interaction_op(z), lambda: interaction_ref(z),
+                         DEVICE_NAMES["interaction"],
+                         lambda: torch.bmm(z, z.transpose(1, 2))[:, iu, ju]))
+    emit({"phase": "kernel", **row, "shape": [n, F, d], "library": "bmm + triangle gather"})
+    return row
+
+
+def attention_bound(q, k, causal, mem_rate):
+    """Bytes of q, k, v read and out written once; flops of the scores and
+    the products over the (causal) pairs, at the dtype's dense peak."""
+    Bq, S, H, d = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    rate = BF16_RATE if q.element_size() == 2 else FP32_RATE  # bf16 or f32
+    return bound(nbytes, 4 * d * Bq * H * pairs, mem_rate, rate)
+
+
+def check_attention(torch, q, k, v, causal, mem_rate, timed=False):
+    """K9 against its plain version on (B, S, H, d) q and (B, S, KV, d) k, v.
+    Returns the check (and, if ``timed``, the table row's times)."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_attention.ops import gqa_attention_op
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+
+    got = one_launch(gqa_attention_op, lambda: gqa_attention_op(q, k, v, causal=causal))
+    want = gqa_attention_ref(q, k, v, causal=causal)
+    got, want = got.float(), want.float()
+    err = max_err([got], [want])
+    rel_norm = ((got - want).norm() / want.norm()).item()
+    dtype = str(q.dtype).split(".")[-1]
+    if dtype == "bfloat16":
+        tol = {"atol": ATTN_BF16_ATOL, "rtol": ATTN_BF16_RTOL, "rel_norm": ATTN_BF16_REL_NORM}
+        assert rel_norm <= ATTN_BF16_REL_NORM, ("flash_attention rel norm", rel_norm)
+    else:
+        tol = {"atol": ATTN_TOL[dtype], "rtol": ATTN_TOL[dtype]}
+    torch.testing.assert_close(got, want, rtol=tol["rtol"], atol=tol["atol"])
+    del got, want
+    b_ms, b_by = attention_bound(q, k, causal, mem_rate)
+    out = dict(shape=list(q.shape), kv_heads=k.shape[2], dtype=dtype, causal=causal,
+               max_abs_err=err, rel_norm_err=rel_norm, tol=tol, bound_ms=b_ms, bound_by=b_by)
+    if timed:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, S, d)
+        out.update(timings(
+            torch, lambda: gqa_attention_op(q, k, v, causal=causal),
+            lambda: gqa_attention_ref(q, k, v, causal=causal), DEVICE_NAMES["flash_attention"],
+            lambda: Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                    enable_gqa=True)))
+    torch.cuda.empty_cache()
+    return out
+
+
+def profiled(torch, fn, check=None):
+    """(fn's result, device time by kernel, wall time and device idle share
+    of one call of ``fn``), from a torch.profiler trace of the device alone
+    (``fn`` runs twice: see ``traced``). Where every trace lost events, the
+    device figures are None (not measured) and the kernels an empty dict."""
+    out, wall_ms, events, _ = traced(torch, fn, check=check)
+    if events is None:
+        return out, {}, {"wall_ms": wall_ms, "device_ms": None, "idle_share": None,
+                         "device_launches": None, "top_device": None}
+    by_name = device_kernels(events)
+    busy = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return out, by_name, {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1 - busy / wall_ms,
+                          "device_launches": sum(c for _, c in by_name.values()),
+                          "top_device": [[n[:80], t, c] for n, (t, c) in top]}
+
+
+class ClockSampler:
+    """The card's SM clock (MHz) and power draw (W), sampled by ``nvidia-smi``
+    every 20 ms while the block runs; ``summary()`` gives their medians and
+    the lowest clock (None where nothing was sampled)."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+             "-lms", "20"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        time.sleep(0.2)  # its first sample
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.samples = []
+        for line in out.splitlines():
+            try:
+                mhz, watts = (float(x) for x in line.split(",")[:2])
+            except ValueError:
+                continue
+            self.samples.append((mhz, watts))
+        return False
+
+    def summary(self):
+        if not self.samples:
+            return {"sm_clock_MHz_median": None, "sm_clock_MHz_min": None, "power_W_median": None}
+        mhz = sorted(m for m, _ in self.samples)
+        watts = sorted(w for _, w in self.samples)
+        return {"sm_clock_MHz_median": mhz[len(mhz) // 2], "sm_clock_MHz_min": mhz[0],
+                "power_W_median": watts[len(watts) // 2], "samples": len(mhz)}
+
+
+def k9_in_context(torch, q, k, v, before, reps=50):
+    """K9's device ms a launch (torch.profiler) when each launch follows
+    ``before()``, with the SM clock sampled meanwhile."""
+    from repro_torch.kernels.flash_attention.ops import gqa_attention_op
+
+    def body():
+        for _ in range(reps):
+            before()
+            gqa_attention_op(q, k, v, causal=True)
+
+    with ClockSampler() as clocks:
+        events = traced(torch, body, check=launched(DEVICE_NAMES["flash_attention"], reps))[2]
+    k9_ms = None  # not measured: every trace lost events
+    if events is not None:
+        k9_ms = sum(t for n, (t, _) in device_kernels(events).items()
+                    if DEVICE_NAMES["flash_attention"] in n) / reps
+    return {"k9_ms": k9_ms, "calls": reps, **clocks.summary()}
+
+
+def serving_phase(torch, mem_rate, all_ops, path_counts):
+    """Phase 7. Returns the K9 table row (launches filled from the path)."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, transformer
+
+    # K9 at the reference tests' shapes, f32
+    gen = torch.Generator().manual_seed(4)
+    for b, s, h, kv, d, causal in ATTN_CASES:
+        q = torch.randn((b, s, h, d), generator=gen).cuda()
+        k, v = (torch.randn((b, s, kv, d), generator=gen).cuda() for _ in range(2))
+        emit({"phase": "kernel_check", "name": "flash_attention",
+              **check_attention(torch, q, k, v, causal, mem_rate)})
+
+    # phi3-medium-14b at full width, its weights drawn on the card
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                     device="cuda")
+    torch.cuda.synchronize()
+    n_par = transformer.n_params(params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in T.leaves(params))
+    emit({"phase": "serve_setup", "arch": cfg.name, "dtype": cfg.dtype, "params": n_par,
+          "weights_GB": weight_bytes / 1e9, "init_s": time.perf_counter() - t0,
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    prompts = serve.make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=0).cuda()
+
+    # K9 on layer 0's own roped q/k/v (bf16), timed beside SDPA and the plain version
+    lp = transformer._layer(params["unit"][0], 0)["mixer"]
+    x = layers.rmsnorm(transformer._layer(params["unit"][0], 0)["norm1"],
+                       layers.embed_lookup(params["embed"], prompts), cfg.norm_eps)
+    pos = torch.arange(SERVE_PROMPT, device="cuda")
+    hd, Bs, S = cfg.resolved_head_dim, SERVE_B, SERVE_PROMPT
+    q = layers.apply_rope((x @ lp["wq"]).reshape(Bs, S, cfg.n_heads, hd), pos, cfg.rope_theta)
+    k = layers.apply_rope((x @ lp["wk"]).reshape(Bs, S, cfg.n_kv_heads, hd), pos, cfg.rope_theta)
+    v = (x @ lp["wv"]).reshape(Bs, S, cfg.n_kv_heads, hd)
+    chk = check_attention(torch, q, k, v, True, mem_rate, timed=True)
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention/flash_attention.py:81",
+               **{kk: chk[kk] for kk in ("max_abs_err", "rel_norm_err", "tol", "bound_ms",
+                                         "bound_by", "ms", "op_ms", "traced_launches",
+                                         "call_ms", "plain_ms", "plain_call_ms",
+                                         "library_ms")})
+    emit({"phase": "kernel", **chk, "name": "flash_attention", "source": row["source"],
+          "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"})
+    # the same launch back to back, after an L2 flush, and after the layer's
+    # gate projection (as in the prefill, where K9 follows cuBLAS work)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")  # 256 MiB > L2
+    x2 = x.reshape(-1, cfg.d_model)
+    w_gate = transformer._layer(params["unit"][0], 0)["ffn"]["w_gate"]
+    contexts = {"back_to_back": lambda: None, "after_l2_flush": flush.zero_,
+                "after_gate_gemm": lambda: x2 @ w_gate}
+    context_ms = {name: k9_in_context(torch, q, k, v, fn) for name, fn in contexts.items()}
+    emit({"phase": "k9_context", "shape": list(q.shape), **context_ms})
+    row["context_ms"] = {name: c["k9_ms"] for name, c in context_ms.items()}
+    del q, k, v, x, x2, chk, flush
+    torch.cuda.empty_cache()
+
+    # the main path: launch/serve.py's warm-up at the timed shape, then
+    # PREFILL_REPS timed prefills + greedy decode from the last one's cache
+    serve.warmup(params, cfg, prompts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(all_ops.values())
+    res = serve.generate(params, cfg, prompts, SERVE_GEN, prefill_reps=PREFILL_REPS)
+    counts = path_counts["serve_phi3"] = {kk: op.launches for kk, op in all_ops.items()}
+    # one per layer of each prefill
+    assert counts["flash_attention"] == PREFILL_REPS * cfg.n_layers, counts
+    assert all(c == 0 for kk, c in counts.items() if kk != "flash_attention"), counts
+    finite = bool(torch.isfinite(res["prefill_logits"]).all()
+                  and torch.isfinite(res["last_logits"]).all())
+    assert finite, "non-finite logits"
+    tokens = res["tokens"].cpu()
+    assert tokens.shape == (SERVE_B, SERVE_GEN) and int(tokens.max()) < cfg.vocab_size
+    n_steps = SERVE_GEN - 1
+    emit({"phase": "serve", "arch": cfg.name, "batch": SERVE_B, "prompt_len": SERVE_PROMPT,
+          "gen": SERVE_GEN, "prefill_ms": res["prefill_s"] * 1e3,
+          "prefill_ms_all": [t * 1e3 for t in res["prefill_s_all"]],
+          "prefill_spread": (max(res["prefill_s_all"]) - min(res["prefill_s_all"]))
+          / res["prefill_s"],
+          "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / res["prefill_s"],
+          "decode_ms_per_step": res["decode_s"] / n_steps * 1e3,
+          "decode_tokens_per_s": n_steps * SERVE_B / res["decode_s"],
+          "k9_launches_per_prefill": counts["flash_attention"] // PREFILL_REPS,
+          "logits_finite": finite,
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+          "first_tokens": tokens[0, :16].tolist()})
+
+    # where the time goes: one profiled prefill, 8 profiled decode steps
+    with ClockSampler() as clocks:
+        (_, cache), by_name, prof = profiled(
+            torch, lambda: transformer.prefill(params, cfg, prompts, SERVE_PROMPT + SERVE_GEN),
+            check=launched(DEVICE_NAMES["flash_attention"], cfg.n_layers))
+    k9 = [(t, c) for n, (t, c) in by_name.items() if DEVICE_NAMES["flash_attention"] in n]
+    k9_ms, k9_n = sum(t for t, _ in k9), sum(c for _, c in k9)
+    row["path_ms"] = k9_ms / k9_n if by_name else None  # a launch inside the prefill
+    emit({"phase": "serve_profile", "step": "prefill", **prof, "k9_device_ms": k9_ms,
+          "k9_traced_launches": k9_n, "k9_ms_per_launch": row["path_ms"],
+          "k9_share_of_device": k9_ms / prof["device_ms"] if by_name else None,
+          **clocks.summary()})
+    tok = tokens[:, 0].cuda()
+
+    def steps():
+        for i in range(8):
+            transformer.decode_step(params, cfg, cache, tok, SERVE_PROMPT + i)
+
+    _, _, prof = profiled(torch, steps)
+    emit({"phase": "serve_profile", "step": "decode x8", **prof,
+          "weight_read_bound_ms_per_step": weight_bytes / mem_rate * 1e3})
+    del params, cache, res, prompts
+    torch.cuda.empty_cache()
+
+    # a reduced phi3 (2 layers, GQA, f32) on the card against the same weights on the CPU
+    small = dataclasses.replace(reduced(cfg), n_kv_heads=2)
+    p_cpu = transformer.init_params(small, torch.Generator().manual_seed(0), device="cpu")
+    pr = serve.make_prompts(small, 2, 100, seed=0)
+    cpu = serve.generate(p_cpu, small, pr, 8)
+    card = serve.generate(T.map(lambda t: t.cuda(), p_cpu), small, pr.cuda(), 8)
+    assert torch.equal(card["tokens"].cpu(), cpu["tokens"]), (card["tokens"], cpu["tokens"])
+    diff = 0.0
+    for kk in ("prefill_logits", "last_logits"):
+        torch.testing.assert_close(card[kk].cpu(), cpu[kk], rtol=2e-4, atol=2e-4)
+        diff = max(diff, (card[kk].cpu() - cpu[kk]).abs().max().item())
+    emit({"phase": "serve_reference", "arch": "phi3-medium-14b reduced, n_kv_heads=2, f32",
+          "tokens_equal": True, "max_logit_diff_cuda_vs_cpu": diff})
+    return row
+
+
 def shadow_plan(sim, state, n_iters, n_live, sched=()):
     """(launches, landings, joins) of the shadow syncs of ``n_iters``
     iterations from ``state`` (before the run, which moves it), replayed
@@ -497,31 +934,39 @@ def expected_sync_counts(algo, launches, landings, joins):
 
 
 def profile_window(torch, sim, state, iters):
-    """Device time by kernel over ``iters`` main-path iterations. Returns
-    (summary, next state)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel over ``iters`` main-path iterations (a trace
+    that lost events is made again over the next ``iters``). Returns
+    (summary, next state); the device figures are None (not measured) where
+    every trace lost events."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = sim.run(iters, state=state)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = device_kernels(prof)
-    assert by_name, "the profiler recorded no device activity"
+    cur = {"state": state}
+
+    def body():
+        before = embedding_bag_op.launches
+        out = sim.run(iters, state=cur["state"])
+        cur["state"], cur["k1"] = out["state"], embedding_bag_op.launches - before
+        return out
+
+    _, wall_ms, events, host = traced(torch, body, warm=False, host=True,
+                                      check=lambda evs: launched(K1, cur["k1"])(evs))
+    if events is None:
+        return {"iters": iters, "wall_ms": wall_ms, "device_ms": None, "idle_share": None}, \
+            cur["state"]
+    by_name = device_kernels(events)
     busy = sum(t for t, _ in by_name.values())
     per_kernel = {}
     for k, dev_name in DEVICE_NAMES.items():
         hits = [(t, c) for n, (t, c) in by_name.items() if dev_name in n]
         per_kernel[k] = sum(h[0] for h in hits) / max(sum(h[1] for h in hits), 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]
+    host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]
     return {"iters": iters, "wall_ms": wall_ms, "device_ms": busy, "idle_share": 1 - busy / wall_ms,
             "device_launches": sum(c for _, c in by_name.values()),
             "kernel_device_ms_main_path": per_kernel,
             "top_device": [[n[:80], t, c] for n, (t, c) in top],
             "top_host_self": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count] for e in host]}, \
-        out["state"]
+        cur["state"]
 
 
 def busy_union_ms(intervals):
@@ -543,16 +988,24 @@ def threaded_profile(torch, runner, iters):
     """Device idle share of a threaded run, from a torch.profiler trace of
     every stream: the window runs from the trainers' first embedding-bag
     launch to the last device activity; busy is the union of device
-    intervals in it (the streams overlap, so their times do not add)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    intervals in it (the streams overlap, so their times do not add). A
+    trace that lost events is made again over the next ``iters``; where every
+    one lost some, the device figures are None (not measured)."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cur = {}
+
+    def body():
+        before = embedding_bag_op.launches
         out = runner.run(iters)
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    assert evs, "the profiler recorded no device activity"
+        cur["k1"] = embedding_bag_op.launches - before
+        return out
+
+    out, _, evs, _ = traced(torch, body, warm=False,
+                            check=lambda evs: launched(K1, cur["k1"])(evs))
+    if evs is None:
+        return {"iters": iters, "window_ms": None, "device_busy_ms": None, "idle_share": None,
+                "sync_rounds": out["sync_rounds"]}
     first = min(ev.time_range.start for ev in evs if DEVICE_NAMES["embedding_bag"] in ev.name)
     spans = [(max(ev.time_range.start, first), ev.time_range.end) for ev in evs
              if ev.time_range.end > first]
@@ -589,9 +1042,8 @@ def reset_counts(ops):
 
 
 def release(torch):
-    """Free the device memory of the objects just dropped: a runner holds
-    reference cycles (its supervisor's callbacks), which only the cyclic
-    collector breaks."""
+    """Free the device memory of the objects just dropped: collect any
+    reference cycles, then return the cached blocks."""
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -613,7 +1065,9 @@ def main() -> int:
     from repro_torch.kernels.bmuf_update.ops import bmuf_sync_op, bmuf_sync_rows_op
     from repro_torch.kernels.easgd_update.ops import easgd_pair_flat_op, easgd_round_op
     from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
+    from repro_torch.kernels.flash_attention.ops import gqa_attention_op
     from repro_torch.kernels.gossip_update.ops import gossip_pair_flat_op, gossip_round_op
+    from repro_torch.kernels.interaction.ops import interaction_op
     from repro_torch.kernels.ma_update import ops as ma_ops
     from repro_torch.kernels.sparse_adagrad.ops import sparse_adagrad_op
 
@@ -629,6 +1083,7 @@ def main() -> int:
 
     # 2 · build every kernel at once, one nvcc each
     t0 = time.perf_counter()
+    assert set(KERNELS) == set(backend.sources()), (KERNELS, backend.sources())
     built = backend.build(KERNELS)
     for name in KERNELS:
         with open(backend.library_path(name) + ".log") as f:
@@ -652,6 +1107,7 @@ def main() -> int:
     # 3 · each kernel against its plain version
     rows = check_kernels(torch, sim, st, mem_rate)
     sync_rows = check_sync_kernels(torch, st, mem_rate)
+    k8_row = check_interaction(torch, mem_rate)
     torch.cuda.empty_cache()
 
     # 4 · the main path
@@ -662,7 +1118,8 @@ def main() -> int:
                 "ma_update": ma_ops.ma_sync_op, "ma_update_rows": ma_ops.ma_sync_rows_op,
                 "bmuf_update": bmuf_sync_op, "bmuf_update_rows": bmuf_sync_rows_op,
                 "gossip_pair": gossip_pair_flat_op, "gossip_round": gossip_round_op}
-    all_ops = {**ops, **sync_ops}
+    lm_ops = {"interaction": interaction_op, "flash_attention": gqa_attention_op}
+    all_ops = {**ops, **sync_ops, **lm_ops}
     path_counts = {}  # {path: {kernel: launches in that path's run}}
 
     def read_counts(path):
@@ -927,6 +1384,7 @@ def main() -> int:
         release(torch)
 
     # MA with a trainer that joins: its bootstrap is the live mean (K5 rows)
+    alloc_before = torch.cuda.memory_allocated()
     rj = ThreadedShadowRunner(cfg, SyncConfig(algo="ma"), n_trainers=R, batch_size=B,
                               optimizer=optim.adagrad(0.02), n_emb_shards=N_SHARDS,
                               fault_spec=FaultSpec(join_at={R - 1: 5}), device="cuda")
@@ -940,7 +1398,14 @@ def main() -> int:
     assert out["iter_count"][R - 1] == 10 - 5 and all(math.isfinite(x) for x in out["train_loss"])
     emit({"phase": "threaded_join", "algo": "ma", "membership_events": events,
           "iter_count": out["iter_count"], "sync_count": out["sync_count"], "launches": counts})
+    alloc_run = torch.cuda.memory_allocated()
     del rj, out
+    torch.cuda.synchronize()
+    # a finished runner holds no reference cycle: dropping it frees its
+    # tables, accumulators and snapshots without the cyclic collector
+    emit({"phase": "threaded_release", "allocated_GB_before_runner": alloc_before / 1e9,
+          "allocated_GB_after_run": alloc_run / 1e9,
+          "allocated_GB_after_del_without_gc": torch.cuda.memory_allocated() / 1e9})
     release(torch)
 
     # 6 · the tiny elastic runs (the reference's schedule), card against CPU
@@ -962,7 +1427,17 @@ def main() -> int:
               "max_plane_diff_cuda_vs_cpu": (tiny["cuda"][2] - tiny["cpu"][2]).abs().max().item(),
               "sync_count": tiny["cuda"][1]})
 
-    # 7 · the kernel table, the card, the result
+    # 7 · the serving path, with the DLRM state released first
+    alloc, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    release(torch)
+    emit({"phase": "release", "allocated_GB_before": alloc / 1e9, "peak_GB_before": peak / 1e9,
+          "allocated_GB_after": torch.cuda.memory_allocated() / 1e9,
+          "reserved_GB_after": torch.cuda.memory_reserved() / 1e9})
+    k9_row = serving_phase(torch, mem_rate, all_ops, path_counts)
+    k9_row["launches"] = path_counts["serve_phi3"]["flash_attention"]
+    k8_row["launches"] = sum(c["interaction"] for c in path_counts.values())  # no path runs K8
+
+    # 8 · the kernel table, the card, the result
     main_path_of = {"replica_mean": "sim_ma", "ma_update": "sim_ma",
                     "replica_mean_rows": "elastic_ma", "ma_update_rows": "elastic_ma",
                     "bmuf_update": "sim_bmuf", "bmuf_update_rows": "elastic_bmuf",
@@ -972,6 +1447,7 @@ def main() -> int:
         row["launches_by_path"] = {p: c[k] for p, c in path_counts.items() if c[k]}
         assert row["launches"] > 0, (k, row["launches_by_path"])
     rows.update(sync_rows)
+    rows["interaction"], rows["flash_attention"] = k8_row, k9_row
     emit({"kernels": [{k: v for k, v in row.items() if k != "tol"} for row in rows.values()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -507,9 +507,11 @@ class ThreadedShadowRunner:
             raise ValueError("FaultSpec injects sync/PS chaos, but supervise=False: the "
                              "supervisor is both the injection clock and the recovery path")
         self.supervisor: Optional[Supervisor] = None
-        # per-shard in-place sparse-Adagrad writes, routed by the plan
+        # per-shard in-place sparse-Adagrad writes, routed by the plan; they
+        # bind the plan, not ``self``, so the runner holds no reference cycle
+        plan = self.plan
         self._emb_updates = [
-            lambda st, idx, g, s=s: emb_shards.shard_update(self.plan, s, st, idx, g, emb_lr)
+            lambda st, idx, g, s=s: emb_shards.shard_update(plan, s, st, idx, g, emb_lr)
             for s in range(self.n_emb_shards)]
         # The background round: a host callable from the algorithm that
         # replaces the live per-trainer planes/trees (Algorithm 1).
@@ -990,6 +992,10 @@ class ThreadedShadowRunner:
             # read the loops' clean exits as deaths
             sup.deregister("shadow")
             sup.stop()
+            # the tick closes over this run's state and the runner: drop it,
+            # so a finished runner is freed when its last name goes (its
+            # device memory with it), not only by the cyclic collector
+            sup.tick = None
         if shadow_t is not None:
             shadow_t.join(timeout=5.0)
             if shadow_t.is_alive():

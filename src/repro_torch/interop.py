@@ -22,7 +22,10 @@ Tree = Any
 
 def _tensor(x, device) -> torch.Tensor:
     # np.array copies: the result never aliases the caller's buffer
-    return torch.from_numpy(np.array(x)).to(device)
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":  # numpy's extension type: carry the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def dense_from_numpy(tree: Tree, device="cpu") -> Tree:
@@ -69,6 +72,13 @@ def shard_states_from_numpy(plan: shards.ShardPlan, packed_state: Dict[str, Any]
     """A packed {"table", "acc"} state -> the port's per-shard states, split
     by ``plan`` as ``EmbeddingShards.init`` splits the tables it draws."""
     return shards.shard_states(plan, tables_from_numpy(packed_state, device))
+
+
+def lm_params_from_numpy(tree: Tree, device="cpu") -> Tree:
+    """The JAX ``spmd.init_params`` tree of an LM (its leaves as numpy, f32
+    or bfloat16) -> the port's parameters: the same keys and the same
+    stacked ``unit`` tuple (``models/transformer.py``)."""
+    return T.map(lambda x: _tensor(x, device), tree)
 
 
 def tree_to_numpy(tree: Tree) -> Tree:

@@ -60,6 +60,12 @@ def source_path(name: str) -> str:
     return os.path.join(KERNELS_DIR, name, "csrc", f"{name}.cu")
 
 
+def sources() -> List[str]:
+    """Every kernel source of the port: each ``<name>`` under this directory
+    that holds ``<name>/csrc/<name>.cu``."""
+    return sorted(n for n in os.listdir(KERNELS_DIR) if os.path.exists(source_path(n)))
+
+
 def library_path(name: str) -> str:
     with open(source_path(name), "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]

@@ -590,3 +590,114 @@ def test_bmuf_plane_kernel_ref_is_the_oracle_round():
     t = bmuf_sync_op(_t(stack), ma_ops.replica_mean_op(_t(snap)), _t(wg), _t(vel), 0.4, **kw)
     for a, b in zip(t, (o_stack["w"], o_state.w_global["w"], o_state.velocity["w"])):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# K9 · flash attention (GQA wrapper), K8 · interaction
+# ---------------------------------------------------------------------------
+
+from repro.kernels.flash_attention.ops import gqa_attention_op as j_gqa_attention_op  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref  # noqa: E402
+from repro.kernels.interaction.ops import interaction_op as j_interaction_op  # noqa: E402
+from repro.kernels.interaction.ref import interaction_ref as j_interaction_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import gqa_attention_op  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.interaction.ops import interaction_op  # noqa: E402
+from repro_torch.kernels.interaction.ref import interaction_ref  # noqa: E402
+from repro_torch.models import dlrm as tdlrm  # noqa: E402
+
+ATTN_TOL = dict(rtol=2e-4, atol=2e-4)  # the reference's (tests/test_kernels.py)
+
+
+def _qkv(seed, b, s, h, kv, d, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, d)).astype(dtype),
+            rng.standard_normal((b, s, kv, d)).astype(dtype),
+            rng.standard_normal((b, s, kv, d)).astype(dtype))
+
+
+def _fold(x):
+    b, s, h, d = x.shape
+    return x.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+
+@pytest.mark.parametrize("s,h,kv,d", [(128, 4, 4, 64), (256, 4, 2, 64), (256, 8, 1, 128),
+                                      (384, 2, 2, 32)])
+def test_gqa_attention_matches_jax(s, h, kv, d):
+    """The reference tests' shapes at batch 2; the JAX op runs its Pallas
+    kernel in interpret mode."""
+    q, k, v = _qkv(s + h, 2, s, h, kv, d)
+    want = np.asarray(j_gqa_attention_op(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = gqa_attention_op(_t(q), _t(k), _t(v))
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
+
+
+def test_gqa_attention_unaligned_causal_matches_jax():
+    q, k, v = _qkv(13, 1, 100, 2, 2, 64)
+    want = np.asarray(j_gqa_attention_op(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         causal=True))
+    np.testing.assert_allclose(gqa_attention_op(_t(q), _t(k), _t(v), causal=True).numpy(), want,
+                               **ATTN_TOL)
+
+
+@pytest.mark.parametrize("s", [100, 128])
+def test_gqa_attention_noncausal_matches_jax_oracle(s):
+    """Non-causal: held against the JAX ``attention_ref``. At S = 100 the
+    JAX op itself pads K/V with zeros and lets them into the softmax (a
+    reference-side fact); the port masks keys beyond S."""
+    q, k, v = _qkv(11 + s, 1, s, 2, 2, 64)
+    want = j_attention_ref(jnp.asarray(_fold(q)), jnp.asarray(_fold(k)), jnp.asarray(_fold(v)),
+                           causal=False)
+    want = np.asarray(want).reshape(1, 2, s, 64).transpose(0, 2, 1, 3)
+    got = gqa_attention_op(_t(q), _t(k), _t(v), causal=False)
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ref_matches_jax(causal):
+    q, k, v = (_fold(x) for x in _qkv(5, 2, 96, 3, 3, 32))
+    want = np.asarray(j_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      causal=causal))
+    np.testing.assert_allclose(attention_ref(_t(q), _t(k), _t(v), causal=causal).numpy(), want,
+                               **ATTN_TOL)
+
+
+def test_gqa_attention_bf16_matches_jax():
+    q, k, v = _qkv(17, 1, 128, 2, 2, 64)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(j_gqa_attention_op(jq, jk, jv, causal=True), np.float32)
+    tq, tk, tv = (_t(x).to(torch.bfloat16) for x in (q, k, v))
+    got = gqa_attention_op(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("b,f,d", [(64, 9, 16), (128, 27, 64), (100, 5, 32)])
+def test_interaction_matches_jax(b, f, d):
+    z = np.random.default_rng(b + f).standard_normal((b, f, d)).astype(np.float32)
+    want_op = np.asarray(j_interaction_op(jnp.asarray(z)))
+    want_ref = np.asarray(j_interaction_ref(jnp.asarray(z)))
+    got = interaction_op(_t(z))
+    assert got.shape == (b, f * (f - 1) // 2) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want_op, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(interaction_ref(_t(z)).numpy(), want_ref, rtol=1e-5, atol=1e-5)
+
+
+def test_interaction_is_the_dlrm_interact_dots():
+    """The kernel's function is exactly the dot features of the port's
+    ``dlrm.interact`` (as the reference pins for its own)."""
+    rng = np.random.default_rng(3)
+    bottom = _t(rng.standard_normal((16, 8)).astype(np.float32))
+    pooled = _t(rng.standard_normal((16, 4, 8)).astype(np.float32))
+    full = tdlrm.interact(bottom, pooled)
+    dots = interaction_op(torch.cat([bottom[:, None, :], pooled], dim=1))
+    np.testing.assert_allclose(full[:, 8:].numpy(), dots.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_cpu_lm_wrappers_do_not_count_launches():
+    before = (gqa_attention_op.launches, interaction_op.launches)
+    x = torch.ones((1, 4, 2, 32))
+    gqa_attention_op(x, x, x)
+    interaction_op(torch.ones((2, 3, 4)))
+    assert (gqa_attention_op.launches, interaction_op.launches) == before

@@ -200,3 +200,107 @@ def test_threaded_cli_ignores_the_membership_schedule(capsys):
                       "--sync-sleep", "0.005", "--membership-schedule", "fail@1:1"])
     assert out["iter_count"] == [3, 3] and out["sync_count"] > 0
     assert "membership:" not in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The serving slice: configs, transformer, serve, K8 and K9
+# ---------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+
+from repro_torch.configs.base import get_config, reduced  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers, transformer  # noqa: E402
+
+
+def test_port_scan_sees_the_serving_slice():
+    files = set(_port_files())
+    for rel in ("configs/base.py", "configs/phi3_medium_14b.py", "configs/minicpm_2b.py",
+                "models/transformer.py", "models/layers.py", "launch/serve.py",
+                "kernels/flash_attention/flash_attention.py", "kernels/flash_attention/ops.py",
+                "kernels/flash_attention/ref.py", "kernels/interaction/interaction.py",
+                "kernels/interaction/ops.py", "kernels/interaction/ref.py"):
+        assert os.path.join(PORT, *rel.split("/")) in files, rel
+    for name in ("flash_attention", "interaction"):
+        assert os.path.exists(backend.source_path(name)) and name in backend.sources()
+
+
+def test_every_kernel_source_is_listed_once():
+    """``backend.sources()`` is the directory scan, and the smoke's table of
+    kernels to build and check names each source once."""
+    import chip_smoke
+
+    on_disk = sorted(d for d in os.listdir(os.path.join(PORT, "kernels"))
+                     if os.path.exists(backend.source_path(d)))
+    assert backend.sources() == on_disk and len(on_disk) == 8
+    assert sorted(chip_smoke.KERNELS) == on_disk
+
+
+@pytest.mark.parametrize("marks, kept", [
+    ((0, 90), True),  # a marker on each side: the whole body is in the trace
+    ((0, 10, 90), True),  # the pad spin kept too
+    ((90,), False),  # the opening marker lost: so may the body's first launches be
+    ((0,), False),  # the closing marker lost
+    ((0, 30), False),  # nothing whole between the markers
+])
+def test_smoke_keeps_a_trace_only_with_its_body_bracketed(marks, kept):
+    """The smoke's profiler traces: a trace is kept only where the opening
+    and the closing marker spins (the last two) are in it with device events
+    between them; the markers, the host's events and device events outside
+    the markers are left out."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    import chip_smoke
+
+    def ev(name, start, end, device=DeviceType.CUDA):
+        return SimpleNamespace(name=name, device_type=device,
+                               time_range=SimpleNamespace(start=start, end=end,
+                                                          elapsed_us=lambda: end - start))
+
+    body = [ev("embedding_bag_kernel", 20, 40), ev("vectorized_elementwise_kernel", 50, 60)]
+    events = [ev("cudaLaunchKernel", 5, 6, DeviceType.CPU), ev("Activity Buffer Request", 96, 97),
+              *body,
+              *(ev(f"at::cuda::{chip_smoke.MARKER_KERNEL}(long)", t, t + 5) for t in marks)]
+    got = chip_smoke.body_events(events)
+    assert (got == body) if kept else got is None
+    assert chip_smoke.body_events([ev(chip_smoke.MARKER_KERNEL, t, t + 5) for t in (0, 90)]) is None
+    if kept:
+        assert chip_smoke.launched("embedding_bag_kernel", 1)(got)
+        assert not chip_smoke.launched("embedding_bag_kernel", 2)(got)
+
+
+def test_serve_without_device_needs_the_card(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "phi3-medium-14b", "--prompt-len", "8", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "phi3-medium-14b", "--device", "cuda", "--full"])
+
+
+def test_unported_families_are_refused_before_any_weight():
+    gen = torch.Generator().manual_seed(0)
+    for arch in ("mamba2-780m", "kimi-k2-1t-a32b", "llava-next-34b", "whisper-base"):
+        cfg = reduced(get_config(arch))
+        toks = torch.zeros((1, 4), dtype=torch.long)
+        for fn in (lambda: transformer.init_params(cfg, gen, device="cpu"),
+                   lambda: transformer.prefill({}, cfg, toks, 8),
+                   lambda: transformer.decode_step({}, cfg, (), toks[:, 0], 4),
+                   lambda: transformer.init_cache(cfg, 1, 8, device="cpu")):
+            with pytest.raises(NotImplementedError, match="not yet ported"):
+                fn()
+    cfg = dataclasses.replace(reduced(get_config("granite-20b")), parallel_block=True)
+    with pytest.raises(NotImplementedError, match="parallel_block"):
+        transformer.init_params(cfg, gen)
+
+
+def test_card_refuses_what_k9_does_not_compute():
+    """On the card, a sliding window is refused (K9 has none); on the CPU the
+    same config runs the reference's plain path."""
+    cfg = dataclasses.replace(reduced(get_config("phi3-medium-14b")), sliding_window=16)
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        layers.refuse_on_card(cfg)
+    layers.refuse_on_card(reduced(get_config("phi3-medium-14b")))  # K9's case passes
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    out = serve.generate(params, cfg, serve.make_prompts(cfg, 1, 40, seed=0), 3)
+    assert out["tokens"].shape == (1, 3) and torch.isfinite(out["last_logits"]).all()

@@ -321,3 +321,27 @@ def test_ma_join_bootstraps_from_the_live_mean(engine, monkeypatch):
             torch.testing.assert_close(got, replica_mean_rows_ref(x, rows), rtol=1e-6,
                                        atol=1e-7)
     assert out["iter_count"][2] == 6 and math.isfinite(out["train_loss"][2])
+
+
+@pytest.mark.parametrize("mode,supervise", [("shadow", True), ("fixed_rate", True),
+                                            ("shadow", False)])
+def test_finished_runner_holds_no_reference_cycle(mode, supervise):
+    """With the cyclic collector off, a finished runner is freed as soon as
+    its last name is dropped: its tables, accumulators and snapshots (device
+    memory on the card) go with it."""
+    import gc
+    import weakref
+
+    gc.collect()
+    gc.disable()
+    try:
+        r = runners.ThreadedShadowRunner(CFG, sync.SyncConfig(mode=mode, gap=2), n_trainers=2,
+                                         batch_size=8, optimizer=optim.adagrad(0.02),
+                                         supervise=supervise, device="cpu")
+        out = r.run(3)
+        assert out["iter_count"] == [3, 3]
+        ref, emb = weakref.ref(r), weakref.ref(r.emb)
+        del r, out
+        assert ref() is None and emb() is None
+    finally:
+        gc.enable()

@@ -5,7 +5,9 @@
 
 Phases, each of which asserts (any failure exits non-zero):
   1. the card's name and power limit, the torch and CUDA versions; TF32 off;
-  2. build the hand-written kernels from the sources in the checkout;
+  2. build the hand-written kernels from the sources in the checkout; each
+     K9 kernel's registers, shared memory and spills, and the bf16 K9's
+     SASS checked for wgmma (HGMMA) and TMA loads (UTMALDG);
   3. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes, and time it beside its bound, the plain version and
      (for the embedding bag) the one PyTorch call computing the same function;
@@ -31,19 +33,21 @@ Phases, each of which asserts (any failure exits non-zero):
   7. the serving path: the DLRM state released (device memory before and
      after), phi3-medium-14b at the full width of its CONFIG (bf16, 14.7 B
      parameters drawn on the card), K9 held against its plain version on
-     layer 0's q/k/v at B=4 x 2048 and at the reference tests' shapes, and
+     layer 0's q/k/v at B=4 x 2048 and at the reference tests' shapes (f32
+     on the CUDA-core kernel, bf16 on the tensor-core one), and
      timed there back to back, after an L2 flush and after a GEMM; then
      ``launch/serve.py``'s warm-up at the timed shape, 5 timed prefills
      (median and spread) + 31 greedy decode steps (exactly 40 K9 launches a
-     prefill, finite logits), a profiled prefill (with the SM clock sampled)
-     and decode, and a reduced phi3 on the card held against the same
-     weights on the CPU;
+     prefill, all by the tensor-core kernel; finite logits), a profiled
+     prefill (with the SM clock sampled) and decode, and a reduced phi3 on
+     the card held against the same weights on the CPU;
   8. the kernel table as one JSON line, then the result line.
 """
 import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -77,7 +81,7 @@ ATTN_TOL = {"float32": 2e-4}
 # output is rounded to bf16 once (half an ulp, 2^-9 relative), so
 # atol 6e-3, rtol 1e-2 elementwise and 1e-2 in the relative norm
 ATTN_BF16_ATOL, ATTN_BF16_RTOL, ATTN_BF16_REL_NORM = 6e-3, 1e-2, 1e-2
-# K9 against its plain version: (B, S, H, KV heads, d, causal), f32
+# K9 against its plain version: (B, S, H, KV heads, d, causal), f32 and bf16
 ATTN_CASES = ((1, 128, 2, 2, 64, True), (1, 128, 2, 2, 64, False), (1, 100, 2, 2, 64, True),
               (1, 100, 2, 2, 64, False), (2, 256, 8, 1, 128, True))
 
@@ -101,8 +105,12 @@ DEVICE_NAMES_BY_SOURCE = {
     "bmuf_update": {"bmuf_update": "bmuf_rows_kernel", "bmuf_update_rows": "bmuf_rows_kernel"},
     "gossip_update": {"gossip_pair": "gossip_pair_kernel", "gossip_round": "gossip_round_kernel"},
     "interaction": {"interaction": "interaction_kernel"},
-    "flash_attention": {"flash_attention": "flash_attention_kernel"},
+    # bf16 (the serving path) on the tensor cores; f32 on the CUDA cores
+    "flash_attention": {"flash_attention": "flash_attention_wgmma_kernel",
+                        "flash_attention_f32": "flash_attention_kernel"},
 }
+# what the bf16 K9's SASS must hold: tensor-core products and TMA loads
+K9_SASS_OPS = ("HGMMA", "UTMALDG")
 KERNELS = tuple(DEVICE_NAMES_BY_SOURCE)
 K1 = DEVICE_NAMES_BY_SOURCE["embedding_bag"]["embedding_bag"]
 DEVICE_NAMES = {k: g for names in DEVICE_NAMES_BY_SOURCE.values() for k, g in names.items()}
@@ -762,13 +770,14 @@ def serving_phase(torch, mem_rate, all_ops, path_counts):
     from repro_torch.launch import serve
     from repro_torch.models import layers, transformer
 
-    # K9 at the reference tests' shapes, f32
+    # K9 at the reference tests' shapes, f32 and bf16
     gen = torch.Generator().manual_seed(4)
-    for b, s, h, kv, d, causal in ATTN_CASES:
-        q = torch.randn((b, s, h, d), generator=gen).cuda()
-        k, v = (torch.randn((b, s, kv, d), generator=gen).cuda() for _ in range(2))
-        emit({"phase": "kernel_check", "name": "flash_attention",
-              **check_attention(torch, q, k, v, causal, mem_rate)})
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h, kv, d, causal in ATTN_CASES:
+            q = torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
+            k, v = (torch.randn((b, s, kv, d), generator=gen).to("cuda", dtype) for _ in range(2))
+            emit({"phase": "kernel_check", "name": "flash_attention",
+                  **check_attention(torch, q, k, v, causal, mem_rate)})
 
     # phi3-medium-14b at full width, its weights drawn on the card
     cfg = get_config(SERVE_ARCH)
@@ -853,9 +862,12 @@ def serving_phase(torch, mem_rate, all_ops, path_counts):
             check=launched(DEVICE_NAMES["flash_attention"], cfg.n_layers))
     k9 = [(t, c) for n, (t, c) in by_name.items() if DEVICE_NAMES["flash_attention"] in n]
     k9_ms, k9_n = sum(t for t, _ in k9), sum(c for _, c in k9)
+    k9_f32 = sum(c for n, (_, c) in by_name.items() if DEVICE_NAMES["flash_attention_f32"] in n)
+    assert k9_f32 == 0, f"the prefill ran the f32 K9 {k9_f32} times"
     row["path_ms"] = k9_ms / k9_n if by_name else None  # a launch inside the prefill
     emit({"phase": "serve_profile", "step": "prefill", **prof, "k9_device_ms": k9_ms,
-          "k9_traced_launches": k9_n, "k9_ms_per_launch": row["path_ms"],
+          "k9_traced_launches": k9_n, "k9_f32_launches": k9_f32,
+          "k9_ms_per_launch": row["path_ms"],
           "k9_share_of_device": k9_ms / prof["device_ms"] if by_name else None,
           **clocks.summary()})
     tok = tokens[:, 0].cuda()
@@ -1048,6 +1060,69 @@ def release(torch):
     torch.cuda.empty_cache()
 
 
+def ptxas_report(log):
+    """{mangled __global__: {registers, static_smem_bytes, spill_stores,
+    spill_loads}} from an ``nvcc -Xptxas -v`` log."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+        elif cur is not None and "spill" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
+            cur.update(spill_stores=int(st), spill_loads=int(ld))
+        elif cur is not None and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def sass_ops(sass, ops):
+    """{function: {op: count}} of a ``cuobjdump -sass`` listing."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = part.split("\n", 1)
+        out[name.strip()] = {op: body.count(op) for op in ops}
+    return out
+
+
+def k9_instance(mangled):
+    """(K9 __global__ name, head dim) of a mangled name."""
+    m = re.search(r"(flash_attention(?:_wgmma)?_kernel)ILi(\d+)E", mangled)
+    assert m and m.group(1) in DEVICE_NAMES_BY_SOURCE["flash_attention"].values(), mangled
+    return m.group(1), int(m.group(2))
+
+
+def k9_build_report(backend):
+    """Phase 2, K9: each __global__'s registers, shared memory (static from
+    the build log, dynamic from the library) and spills, and the SASS of the
+    bf16 kernel; fails unless each of its head dims holds wgmma and TMA
+    loads (K9_SASS_OPS)."""
+    import ctypes
+
+    lib = backend.library_path("flash_attention")
+    with open(lib + ".log") as f:
+        report = ptxas_report(f.read())
+    smem_fn = backend.c_function("flash_attention", "flash_attention_smem_bytes",
+                                 [ctypes.c_int, ctypes.c_int])
+    for mangled, info in sorted(report.items()):
+        name, d = k9_instance(mangled)
+        emit({"phase": "build_k9", "kernel": name, "head_dim": d, **info,
+              "dynamic_smem_bytes": smem_fn(d, int(name == DEVICE_NAMES["flash_attention"]))})
+    sass = subprocess.run([backend.cuda_tool("cuobjdump"), "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found = {}
+    for fn, counts in sass_ops(sass, K9_SASS_OPS + ("UTMASTG",)).items():
+        name, d = k9_instance(fn)
+        if name == DEVICE_NAMES["flash_attention"]:
+            found[d] = counts
+    emit({"phase": "build_k9_sass", "kernel": DEVICE_NAMES["flash_attention"], "by_head_dim": found})
+    assert sorted(found) == [32, 64, 128], f"bf16 K9 instances in the SASS: {sorted(found)}"
+    for d, counts in found.items():
+        assert all(counts[op] > 0 for op in K9_SASS_OPS), f"bf16 K9 d={d} SASS: {counts}"
+
+
 def main() -> int:
     import torch
 
@@ -1093,6 +1168,7 @@ def main() -> int:
         for fn in set(DEVICE_NAMES_BY_SOURCE[name].values()):
             assert any(fn in ln for ln in ptxas), f"no {fn} built"
     emit({"phase": "build", "built": built, "seconds": time.perf_counter() - t0})
+    k9_build_report(backend)
 
     # 4a · the main path's sim and state (its tables feed phase 3 too)
     cfg = dlrm_ctr.CONFIG

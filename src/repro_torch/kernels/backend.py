@@ -72,12 +72,14 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``): under ``$CUDA_HOME``
+    (or ``$CUDA_PATH``, or /usr/local/cuda), else on PATH."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    found = path if os.path.exists(path) else shutil.which("nvcc")
+    path = os.path.join(cuda_home, "bin", name)
+    found = path if os.path.exists(path) else shutil.which(name)
     if found is None:
-        raise RuntimeError(f"nvcc not found (looked in {path} and on PATH)")
+        raise RuntimeError(f"{name} not found (looked in {path} and on PATH)")
     return found
 
 
@@ -99,7 +101,7 @@ def _build(names: Iterable[str]) -> List[str]:
         if os.path.exists(lib):
             continue
         tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, source_path(name)]
         p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs.append((name, lib, tmp, p))
     failed = []

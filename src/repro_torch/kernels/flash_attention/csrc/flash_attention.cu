@@ -9,39 +9,64 @@
 // over j < S (and j <= i when causal). A (BH, S, D) array is the case H = 1.
 //
 // Bound on this card: operations. At the prefill's shape (S = 2048, D = 128)
-// a score costs 4*D flops against 2*D*bytes of q, k, v read once per query
-// row; the work is 2*S*D per row against 4*D*2 bytes, far above the card's
-// ~295 flops per byte. This first kernel computes on the CUDA cores in f32
-// (67 TFLOP/s), not on the tensor cores (989 TFLOP/s in bf16): wgmma and TMA
-// are later work.
+// a query row does 4*S*D flops (causal: half) against 8*D bytes of q, k, v
+// and out, far above the card's ~295 bf16 flops per byte. Only the tensor
+// cores (989 TFLOP/s in bf16, through wgmma) come near that bound.
 //
-// Design. One block of 128 threads owns a tile of BQ = 64 query rows of one
-// (b, h) and walks the key tiles of BK = 32 in order, as the TPU grid's kv
-// axis does: the K and V tiles are staged in shared memory as f32, the
-// running max, denominator and the (64, D) accumulator stay in registers
-// (each thread owns 4 rows x D/8 columns of it). The reads of the TPU
-// kernel's VMEM scratch become register reads. Per key tile:
-//   1. scores: thread (ty, tx) computes rows 4ty..4ty+3 against keys
-//      tx + 8n (n < 4), float4 reads of q and k rows along D (k rows are
-//      padded by 4 floats so the 8 lanes of a quarter warp hit 8 banks);
-//   2. masking and the online softmax in the log2 domain (the scale times
-//      log2 e is folded into the scores): keys >= S are masked in the kernel,
-//      so no zero padding is needed (the reference pads K/V with zeros and,
-//      in its non-causal form, lets the padded keys into the softmax); the
-//      row max and sum are reduced over the 8 lanes of a row with shuffles;
-//   3. out += p v: p goes through shared memory, each thread updates its
-//      4 x D/8 accumulator slice (float4 reads of v, conflict-free).
-// Causal key tiles wholly above the diagonal are never visited (the TPU
-// kernel's pl.when). Query tiles run heaviest first (the causal tiles near
-// the end of the sequence have the most key tiles). GQA reads KV head
-// h / n_rep directly: no repeated copy of k and v is made.
+// Two kernels, chosen by dtype:
+//
+// bf16: flash_attention_wgmma_kernel<D>, warp-specialised, on the tensor
+// cores. The numerics follow the TPU kernel at default precision (bf16
+// operands into the MXU, f32 accumulation): S = Q K^T accumulates bf16
+// products in f32; the online softmax runs in f32 in the log2 domain; P is
+// rounded to bf16 for P V, which accumulates in f32; the output is rounded to
+// bf16 once. One block of 384 threads owns BQ = 128 query rows of one (b, h):
+//   - warpgroup 2 is the producer: it gives up registers (setmaxnreg) and
+//     one of its threads issues every TMA load: the Q tile once, then the K
+//     and V tiles of BK = 128 keys into a ring of STAGES shared-memory
+//     stages, each with a full and an empty mbarrier. One 4-D tensor map per
+//     operand over (B, S, heads, D) reads KV head h / n_rep in place (no
+//     repeat, no transpose), and TMA fills rows at or beyond S with zeros, so
+//     nothing is padded. Tiles are 128B-swizzled boxes of 64 bf16 along D
+//     (two at D = 128; 64B-swizzled boxes of 32 at D = 32);
+//   - warpgroups 0 and 1 each own 64 query rows. Per key tile: S (64 x 128)
+//     by wgmma m64n128k16 with Q and K both from shared memory, K-major; the
+//     mask (keys >= S; j <= i on the diagonal tile only) and the online
+//     softmax on the accumulator in registers, rows reduced over the four
+//     lanes that hold them; P converted in registers to bf16 as wgmma's A
+//     operand (the accumulator's layout is the A fragment's) and O += P V by
+//     wgmma m64nDk16 with V from shared memory, MN-major (transposed). P
+//     never touches shared memory. Lane 0 of each consumer warp then frees
+//     the stage;
+//   - the epilogue divides by l, rounds to bf16, writes each warpgroup's 64
+//     rows into its own (no longer read) part of the Q tile in the swizzled
+//     layout, and one TMA store per box writes them out; TMA clips rows >= S.
+// Key tiles wholly above the diagonal are never loaded (the TPU kernel's
+// pl.when), and the grid runs the heaviest causal query tiles first, for
+// every (b, h), so the short tiles fill the tail.
+//
+// f32: flash_attention_kernel<D>, on the CUDA cores (no path of the port
+// runs attention in f32 on the card; TF32 would not hold the reference's
+// 2e-4). One block of 128 threads owns BQ = 64 query rows of one (b, h) and
+// walks key tiles of BK = 32 staged in shared memory; the running max, the
+// denominator and a (64, D) accumulator stay in registers (each thread owns
+// 4 rows x D/8 columns). Per key tile: scores by float4 reads of q and k rows
+// (k rows padded by 4 floats so a quarter warp hits 8 banks); masking and the
+// online softmax in the log2 domain, rows reduced over 8 lanes by shuffles;
+// p through shared memory into out += p v.
+// <cuda.h> for CUtensorMap and its enums only: libcuda's cuTensorMapEncodeTiled
+// is fetched at run time through the CUDA runtime, so nothing links libcuda
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-
-#include <type_traits>
+#include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;
 constexpr int BK = 32;
@@ -58,57 +83,26 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(float) * ((size_t)(BQ + 2 * BK) * ld_rows<D>() + (size_t)BQ * LDP);
 }
 
-// rows [r0, r0 + rows) of a (., D) row-strided source into dst[r][0..D) as f32;
+// rows [r0, r0 + rows) of a (., D) row-strided source into dst[r][0..D);
 // rows at or beyond S are zero (a zero v row times p = 0 adds nothing).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, long long stride,
-                                          int r0, int rows, int S) {
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
+                                          long long stride, int r0, int rows, int S) {
   constexpr int LD = ld_rows<D>();
-  if constexpr (std::is_same<T, float>::value) {
-    constexpr int CH = D / 4;  // float4 chunks per row
-    for (int idx = threadIdx.x; idx < rows * CH; idx += NT) {
-      int r = idx / CH, c = (idx - r * CH) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < S) val = __ldg(reinterpret_cast<const float4*>(src + (long long)(r0 + r) * stride + c));
-      *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-    }
-  } else {
-    constexpr int CH = D / 8;  // 16-byte chunks of 8 bf16 per row
-    for (int idx = threadIdx.x; idx < rows * CH; idx += NT) {
-      int r = idx / CH, c = (idx - r * CH) * 8;
-      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-      if (r0 + r < S) {
-        uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * stride + c));
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float2 a = __bfloat1622float2(h2[0]), b = __bfloat1622float2(h2[1]);
-        float2 e = __bfloat1622float2(h2[2]), f = __bfloat1622float2(h2[3]);
-        lo = make_float4(a.x, a.y, b.x, b.y);
-        hi = make_float4(e.x, e.y, f.x, f.y);
-      }
-      *reinterpret_cast<float4*>(dst + r * LD + c) = lo;
-      *reinterpret_cast<float4*>(dst + r * LD + c + 4) = hi;
-    }
+  constexpr int CH = D / 4;  // float4 chunks per row
+  for (int idx = threadIdx.x; idx < rows * CH; idx += NT) {
+    int r = idx / CH, c = (idx - r * CH) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S) val = __ldg(reinterpret_cast<const float4*>(src + (long long)(r0 + r) * stride + c));
+    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, float a, float b, float c, float d) {
-  if constexpr (std::is_same<T, float>::value) {
-    *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-  } else {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-    uint2 raw;
-    raw.x = *reinterpret_cast<unsigned*>(&lo);
-    raw.y = *reinterpret_cast<unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = raw;
-  }
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    int H, int n_rep, int S, long long q_sb, long long q_ss, long long kv_sb, long long kv_ss,
-    int causal, float scale_log2) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, int H, int n_rep, int S, long long q_sb, long long q_ss,
+    long long kv_sb, long long kv_ss, int causal, float scale_log2) {
   constexpr int LD = ld_rows<D>();
   constexpr int DC = D / 32;  // float4 column groups per thread in the accumulator
   extern __shared__ float4 smem4[];
@@ -120,11 +114,11 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H, kvh = h / n_rep;
-  const T* qb = q + b * q_sb + (long long)h * D;
-  const T* kb = k + b * kv_sb + (long long)kvh * D;
-  const T* vb = v + b * kv_sb + (long long)kvh * D;
+  const float* qb = q + b * q_sb + (long long)h * D;
+  const float* kb = k + b * kv_sb + (long long)kvh * D;
+  const float* vb = v + b * kv_sb + (long long)kvh * D;
 
-  load_tile<T, D>(Qs, qb, q_ss, q0, BQ, S);
+  load_tile<D>(Qs, qb, q_ss, q0, BQ, S);
 
   float acc[4][4 * DC];
   float m[4], l[4];
@@ -139,8 +133,8 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
   const int kend = causal ? min(S, q0 + BQ) : S;  // keys this tile can see
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile's K, V and P are read
-    load_tile<T, D>(Ks, kb, kv_ss, k0, BK, S);
-    load_tile<T, D>(Vs, vb, kv_ss, k0, BK, S);
+    load_tile<D>(Ks, kb, kv_ss, k0, BK, S);
+    load_tile<D>(Vs, vb, kv_ss, k0, BK, S);
     __syncthreads();
 
     // 1. scores of rows 4ty+r against keys tx+8n
@@ -220,8 +214,8 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     }
   }
 
-  // out = acc / l, in q's type, rows < S only
-  T* ob = o + b * q_sb + (long long)h * D;
+  // out = acc / l, rows < S only
+  float* ob = o + b * q_sb + (long long)h * D;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = q0 + ty * 4 + r;
@@ -229,16 +223,17 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc)
-      store4<T>(ob + (long long)i * q_ss + tx * 4 + 32 * cc, acc[r][cc * 4] * inv,
-                acc[r][cc * 4 + 1] * inv, acc[r][cc * 4 + 2] * inv, acc[r][cc * 4 + 3] * inv);
+      *reinterpret_cast<float4*>(ob + (long long)i * q_ss + tx * 4 + 32 * cc) =
+          make_float4(acc[r][cc * 4] * inv, acc[r][cc * 4 + 1] * inv, acc[r][cc * 4 + 2] * inv,
+                      acc[r][cc * 4 + 3] * inv);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
-           long long q_sb, long long q_ss, long long kv_sb, long long kv_ss, int causal,
-           void* stream) {
-  auto kern = flash_attention_kernel<T, D>;
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
+               long long q_sb, long long q_ss, long long kv_sb, long long kv_ss, int causal,
+               void* stream) {
+  auto kern = flash_attention_kernel<D>;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -246,23 +241,470 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     dim3 grid((S + BQ - 1) / BQ, B * H);
     const float scale_log2 = (1.0f / sqrtf((float)D)) * 1.4426950408889634f;
     kern<<<grid, NT, smem, (cudaStream_t)stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, H, H / Hkv, S, q_sb, q_ss, kv_sb, kv_ss,
-        causal, scale_log2);
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, H, H / Hkv, S, q_sb, q_ss,
+        kv_sb, kv_ss, causal, scale_log2);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
-             int D, long long q_sb, long long q_ss, long long kv_sb, long long kv_ss, int causal,
-             void* stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
-    default: return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel (wgmma + TMA)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int BQ = 128;         // query rows a block: two consumer warpgroups of 64
+constexpr int BK = 128;         // keys a tile
+constexpr int NTHREADS = 384;   // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 128*40 + 256*232 <= 65,536
+
+template <int D>
+struct Cfg {
+  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;  // swizzle span = bytes of a box row
+  static constexpr int BOX = SW / 2;                      // bf16 along D in one box
+  static constexpr int NC = D / BOX;                      // boxes along D
+  static constexpr int KPB = SW / 32;                     // k16 steps within one box row
+  static constexpr int LAYOUT = SW == 128 ? 1 : 2;        // wgmma descriptor: 128B or 64B swizzle
+  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int BARRIERS = 1 + 2 * STAGES;  // q full; full[STAGES]; empty[STAGES]
+  // 1024 of slack to align the tiles to the swizzle pattern's 1024-byte repeat
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed; a phase
+// that never completes (a fault) traps, failing the launch, rather than
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
   }
 }
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator registers across the asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle mode in bits 62-63
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (64 x 128, f32) (+)= A (64 x 16, bf16, shared, K-major) . B (16 x 128, bf16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 32, f32) += A (64 x 16, bf16, registers) . B (16 x 32, bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16, registers) . B (16 x 64, bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16, registers) . B (16 x 128, bf16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 32) wgmma_rs_n32(o, a, b);
+  else if constexpr (D == 64) wgmma_rs_n64(o, a, b);
+  else wgmma_rs_n128(o, a, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_attention_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o, int H,
+    int n_rep, int S, int causal, float scale_log2) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + C::Q_BYTES;
+  const uint32_t sV = sK + C::STAGES * C::KV_BYTES;
+  const uint32_t bar_q = sV + C::STAGES * C::KV_BYTES;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * C::STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, kvh = h / n_rep;
+  const int qt = gridDim.y - 1 - blockIdx.y, q0 = qt * BQ;  // heaviest causal tiles first
+  const int n_all = (S + BK - 1) / BK;
+  const int n_kt = causal ? min(n_all, qt + 1) : n_all;  // key tiles this block sees
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int st = 0; st < C::STAGES; ++st) {
+      mbar_init(bar_full + 8 * st, 1);      // the producer's arrive + the tile's bytes
+      mbar_init(bar_empty + 8 * st, 8);     // lane 0 of each of the 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ---- producer: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_q, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::NC; ++c)
+        tma_load(sQ + c * BQ * C::SW, &tm_q, bar_q, c * C::BOX, h, q0, b);
+      int st = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_kt; ++t) {
+        mbar_wait(bar_empty + 8 * st, phase ^ 1);  // the first round passes at once
+        const uint32_t full = bar_full + 8 * st;
+        mbar_expect_tx(full, 2 * C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::NC; ++c) {
+          tma_load(sK + st * C::KV_BYTES + c * BK * C::SW, &tm_k, full, c * C::BOX, kvh, t * BK, b);
+          tma_load(sV + st * C::KV_BYTES + c * BK * C::SW, &tm_v, full, c * C::BOX, kvh, t * BK, b);
+        }
+        if (++st == C::STAGES) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns query rows q0 + 64 wgi .. + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+    const int i0 = q0 + wgi * 64 + r0, i1 = i0 + 8;
+    const int cq = 2 * (lane & 3);            // its column pair within each 8 columns
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's columns only
+
+    // A (this warpgroup's 64 rows of Q), K-major, 8-row groups 8 * SW apart
+    const uint64_t dq = smem_desc(sQ + wgi * 64 * C::SW, 16, 8 * C::SW, C::LAYOUT);
+    mbar_wait(bar_q, 0);
+    int st = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_kt; ++t) {
+      mbar_wait(bar_full + 8 * st, phase);
+      const uint32_t kst = sK + st * C::KV_BYTES, vst = sV + st * C::KV_BYTES;
+
+      // 1. s = q k^T (64 x 128), bf16 products accumulated in f32
+      float s[64];
+      const uint64_t dk = smem_desc(kst, 16, 8 * C::SW, C::LAYOUT);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // k16 step kk: box kk / KPB, 32 bytes further along the box row per step
+        const uint32_t a_off = (kk / C::KPB) * BQ * C::SW + (kk % C::KPB) * 32;
+        const uint32_t b_off = (kk / C::KPB) * BK * C::SW + (kk % C::KPB) * 32;
+        wgmma_ss_n128(s, dq + (a_off >> 4), dk + (b_off >> 4), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // 2. mask, online softmax in the log2 domain. s[4j + 2h + e] is row
+      // r0 + 8h, key k0 + 8j + cq + e
+      const int k0 = t * BK;
+      const bool edge = k0 + BK > S || (causal && t == qt);
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float a = s[4 * j + e] * scale_log2, c = s[4 * j + 2 + e] * scale_log2;
+          if (edge) {
+            const int key = k0 + 8 * j + cq + e;
+            if (key >= S || (causal && key > i0)) a = -INFINITY;
+            if (key >= S || (causal && key > i1)) c = -INFINITY;
+          }
+          s[4 * j + e] = a;
+          s[4 * j + 2 + e] = c;
+          mx0 = fmaxf(mx0, a);
+          mx1 = fmaxf(mx1, c);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mu0 = mx0 == -INFINITY ? 0.f : mx0;  // a row with nothing seen yet
+      const float mu1 = mx1 == -INFINITY ? 0.f : mx1;
+      const float corr0 = ex2(m0 - mu0), corr1 = ex2(m1 - mu1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[4 * j + e] = ex2(s[4 * j + e] - mu0);
+          s[4 * j + 2 + e] = ex2(s[4 * j + 2 + e] - mu1);
+          sum0 += s[4 * j + e];
+          sum1 += s[4 * j + 2 + e];
+        }
+      }
+      l0 = l0 * corr0 + sum0;
+      l1 = l1 * corr1 + sum1;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr0;
+        o[4 * j + 1] *= corr0;
+        o[4 * j + 2] *= corr1;
+        o[4 * j + 3] *= corr1;
+      }
+
+      // 3. o += p v: p in bf16 as the A fragments of the eight k16 steps
+      // (the accumulator of keys 16kk..16kk+15 is laid out as A's registers)
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      // B = V (keys x D), MN-major: 8-key groups 8 * SW apart, boxes along D BK * SW apart
+      const uint64_t dv = smem_desc(vst, BK * C::SW, 8 * C::SW, C::LAYOUT);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) wgmma_pv<D>(o, pa[kk], dv + ((kk * 16 * C::SW) >> 4));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);  // this warp is done with the stage
+      if (++st == C::STAGES) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+
+    // epilogue: o / l in bf16 into this warpgroup's rows of the Q tile (its
+    // reads of them are complete), in the tensor map's swizzled layout
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + cq, c = col / C::BOX;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = wgi * 64 + r0 + 8 * hh;
+        const uint32_t off = c * BQ * C::SW + row * C::SW + (col % C::BOX) * 2;
+        const uint32_t swz = off ^ (((off >> 7) & (C::SW / 16 - 1)) << 4);
+        const float inv = hh ? inv1 : inv0;
+        const uint32_t val = pack_bf16(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sQ + swz), "r"(val) : "memory");
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the TMA store
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
+    if (tid == 0) {
+#pragma unroll
+      for (int c = 0; c < C::NC; ++c)
+        tma_store(&tm_o, sQ + c * BQ * C::SW + wgi * 64 * C::SW, c * C::BOX, h, q0 + wgi * 64, b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, through the CUDA runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (B, S, heads, D) bf16 array with heads D apart, positions s_stride and
+// batches b_stride elements apart; boxes of (box_d, 1, rows, 1), swizzled
+bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B, long long s_stride,
+              long long b_stride, int box_d, int rows, int sw) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)s_stride * 2,
+                                 (cuuint64_t)b_stride * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_d, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
+           long long q_sb, long long q_ss, long long kv_sb, long long kv_ss, int causal,
+           void* stream) {
+  using C = Cfg<D>;
+  auto kern = flash_attention_wgmma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0 && S > 0 && H > 0) {
+    CUtensorMap tq, tk, tv, to;
+    if (!make_map(&tq, q, D, H, S, B, q_ss, q_sb, C::BOX, BQ, C::SW) ||
+        !make_map(&tk, k, D, Hkv, S, B, kv_ss, kv_sb, C::BOX, BK, C::SW) ||
+        !make_map(&tv, v, D, Hkv, S, B, kv_ss, kv_sb, C::BOX, BK, C::SW) ||
+        !make_map(&to, o, D, H, S, B, q_ss, q_sb, C::BOX, 64, C::SW))
+      return (int)cudaErrorInvalidValue;
+    dim3 grid(B * H, (S + BQ - 1) / BQ);  // every (b, h) of one query tile, heaviest tile first
+    const float scale_log2 = (1.0f / sqrtf((float)D)) * 1.4426950408889634f;
+    kern<<<grid, NTHREADS, C::SMEM, (cudaStream_t)stream>>>(tq, tk, tv, to, H, H / Hkv, S, causal,
+                                                            scale_log2);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
 
 }  // namespace
 
@@ -271,12 +713,34 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B,
                                    int H, int Hkv, int S, int D, long long q_sb, long long q_ss,
                                    long long kv_sb, long long kv_ss, int causal, void* stream) {
-  return dispatch<float>(q, k, v, o, B, H, Hkv, S, D, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+  switch (D) {
+    case 32: return launch_f32<32>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+    case 64: return launch_f32<64>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+    case 128: return launch_f32<128>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
+// the same interface; also needs 16-byte aligned q, k, v, o and strides
+// (TMA), and at most 65,535 query tiles of 128
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
                                     int H, int Hkv, int S, int D, long long q_sb, long long q_ss,
                                     long long kv_sb, long long kv_ss, int causal, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, D, q_sb, q_ss, kv_sb, kv_ss, causal,
-                                 stream);
+  switch (D) {
+    case 32: return wg::launch<32>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+    case 64: return wg::launch<64>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+    case 128: return wg::launch<128>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dynamic shared memory of the bf16 (tensor-core) or f32 kernel at head dim D
+// (0 for another D)
+extern "C" int flash_attention_smem_bytes(int D, int bf16) {
+  switch (D) {
+    case 32: return bf16 ? wg::Cfg<32>::SMEM : (int)smem_bytes<32>();
+    case 64: return bf16 ? wg::Cfg<64>::SMEM : (int)smem_bytes<64>();
+    case 128: return bf16 ? wg::Cfg<128>::SMEM : (int)smem_bytes<128>();
+    default: return 0;
+  }
 }

@@ -1,9 +1,11 @@
-"""Launch of the hand-written CUDA flash-attention kernel (csrc/flash_attention.cu).
+"""Launch of the hand-written CUDA flash-attention kernels (csrc/flash_attention.cu).
 
 Replaces the TPU kernel ``flash_attention`` of
 ``repro/kernels/flash_attention/flash_attention.py``: one launch computes
 causal or full online-softmax attention for every (batch, head), reading
-grouped KV heads in place and masking keys beyond S inside the kernel.
+grouped KV heads in place and masking keys beyond S inside the kernel. The
+dtype picks the kernel: bf16 runs on the tensor cores (wgmma, TMA loads), f32
+on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -19,14 +21,15 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p]
 _SYMBOL = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 HEAD_DIMS = (32, 64, 128)
-MAX_GRID_Y = 65535
+MAX_GRID_Y = 65535  # the grid's y axis: (b, h) for f32, query tiles of 128 rows for bf16
+BF16_QUERY_TILE = 128
 
 
 def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
     """q: (B, S, H, d); k, v: (B, S, Hkv, d), H a multiple of Hkv; f32 or
-    bf16 CUDA tensors, contiguous, d in {32, 64, 128} -> (B, S, H, d) in q's
-    dtype. Query head h reads KV head h // (H / Hkv)."""
+    bf16 CUDA tensors, contiguous, 16-byte aligned, d in {32, 64, 128} ->
+    (B, S, H, d) in q's dtype. Query head h reads KV head h // (H / Hkv)."""
     backend.require(q.dtype in _SYMBOL, f"q must be float32 or bfloat16, got {q.dtype}")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -38,7 +41,12 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     f"k {tuple(k.shape)} and v {tuple(v.shape)} must be {(B, S, Hkv, d)}")
     backend.require(Hkv > 0 and H % Hkv == 0, f"query heads {H} not a multiple of KV heads {Hkv}")
     backend.require(d in HEAD_DIMS, f"head dim must be one of {HEAD_DIMS}, got {d}")
-    backend.require(B * H <= MAX_GRID_Y, f"B*H = {B * H} exceeds the grid's {MAX_GRID_Y}")
+    if q.dtype == torch.float32:
+        backend.require(B * H <= MAX_GRID_Y, f"B*H = {B * H} exceeds the grid's {MAX_GRID_Y}")
+    else:
+        n_tiles = -(-S // BF16_QUERY_TILE)
+        backend.require(n_tiles <= MAX_GRID_Y,
+                        f"{n_tiles} query tiles exceed the grid's {MAX_GRID_Y}")
     out = torch.empty_like(q)
     symbol = _SYMBOL[q.dtype]
     fn = backend.c_function("flash_attention", symbol, _ARGS)

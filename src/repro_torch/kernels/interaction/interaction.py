@@ -18,13 +18,23 @@ _SYMBOL = {torch.float32: "interaction_f32", torch.bfloat16: "interaction_bf16"}
 SMEM_MAX = 227 * 1024
 
 
+def _one_sample_smem_bytes(F: int, d: int) -> int:
+    """Shared memory of a one-sample tile (csrc/interaction.cu's Geometry):
+    its z rows padded to a multiple of 4 floats and the sample to an odd
+    number of float4s, its F(F-1)/2 outputs, the table of 4x4 blocks."""
+    dp = -(-d // 4) * 4
+    sp4 = F * dp // 4
+    nb = -(-F // 4)
+    return 4 * (4 * (sp4 + (sp4 % 2 == 0)) + F * (F - 1) // 2 + nb * (nb + 1) // 2)
+
+
 def interaction(z: torch.Tensor) -> torch.Tensor:
     """z: (B, F, d) f32 or bf16 CUDA, contiguous -> (B, F*(F-1)/2) f32."""
     backend.require(z.dtype in _SYMBOL, f"z must be float32 or bfloat16, got {z.dtype}")
     backend.require_cuda_tensor("z", z, z.dtype, 3)
     B, F, d = z.shape
     backend.require(F >= 2, f"need at least two features, got {F}")
-    backend.require(4 * F * (d + 1) <= SMEM_MAX,
+    backend.require(_one_sample_smem_bytes(F, d) <= SMEM_MAX,
                     f"one sample's {F}x{d} features exceed a block's shared memory")
     out = torch.empty((B, F * (F - 1) // 2), dtype=torch.float32, device=z.device)
     symbol = _SYMBOL[z.dtype]

@@ -346,6 +346,37 @@ def test_flash_attention_bf16_at_the_prefill_shape(gen):
     assert ((got - want).norm() / want.norm()).item() <= 1e-2
 
 
+@pytest.mark.parametrize("s", [1, 33, 127, 128, 129, 1000])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_tensor_core_edges(gen, s, n_rep, d, causal):
+    """The tensor-core kernel's edges: S about its 128-row tiles (rows and
+    keys past S are TMA's zero fill, masked), every GQA ratio of the
+    reference's configs, each head dim (d = 32 takes the 64-byte swizzle).
+    The reference's bf16 tolerance, and 1e-2 in the relative norm."""
+    q = torch.randn((2, s, 2 * n_rep, d), generator=gen).to("cuda", torch.bfloat16)
+    k, v = (torch.randn((2, s, 2, d), generator=gen).to("cuda", torch.bfloat16)
+            for _ in range(2))
+    got = gqa_attention_op(q, k, v, causal=causal).float()
+    want = gqa_attention_ref(q, k, v, causal=causal).float()
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
+def test_flash_attention_bf16_many_query_tiles(gen):
+    """B*H = 96 (b, h) pairs with eight query tiles each (768 blocks, several
+    waves of the card), causal, at the prefill shape's tolerance."""
+    q = torch.randn((3, 1000, 32, 128), generator=gen).to("cuda", torch.bfloat16)
+    k, v = (torch.randn((3, 1000, 4, 128), generator=gen).to("cuda", torch.bfloat16)
+            for _ in range(2))
+    got = gqa_attention_op(q, k, v, causal=True).float()
+    want = gqa_attention_ref(q, k, v, causal=True).float()
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=6e-3)
+    assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
 def test_flash_attention_bh_form(gen):
     q, k, v = (torch.randn((6, 100, 64), generator=gen).cuda() for _ in range(3))
     for causal in (True, False):
@@ -364,8 +395,10 @@ def test_flash_attention_refuses_what_it_does_not_take(gen):
         gqa_attention_op(q.half(), q.half(), q.half())
 
 
+# (2047, 27, 64): B not a multiple of the kernel's 4-sample tile at DLRM's
+# shape; (37, 7, 6): d not a multiple of 4 (staged a value at a time)
 @pytest.mark.parametrize("b,f,d", [(64, 9, 16), (128, 27, 64), (100, 5, 32), (2048, 27, 64),
-                                   (3, 2, 8)])
+                                   (3, 2, 8), (2047, 27, 64), (37, 7, 6)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_interaction_kernel(gen, b, f, d, dtype):
     z = torch.randn((b, f, d), generator=gen).to("cuda", dtype)

@@ -271,6 +271,42 @@ def test_smoke_keeps_a_trace_only_with_its_body_bracketed(marks, kept):
         assert not chip_smoke.launched("embedding_bag_kernel", 2)(got)
 
 
+K9_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_flash_attention_cu_y2wg28flash_attention_wgmma_kernelILi128EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__x_18_flash_attention_cu_y2wg28flash_attention_wgmma_kernelILi128EEEv14CUtensorMap_st
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_flash_attention_cu_y22flash_attention_kernelILi64EEEvPKfS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__x_18_flash_attention_cu_y22flash_attention_kernelILi64EEEvPKfS2_
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 122 registers, used 1 barriers, 16 bytes smem, 464 bytes cmem[0]
+"""
+
+
+def test_smoke_reads_the_k9_build_log_and_sass():
+    """The smoke's K9 build report: registers, static shared memory and
+    spills of each __global__ from the ptxas log, the (kernel, head dim) of
+    a mangled name, and per-function instruction counts from cuobjdump."""
+    import chip_smoke
+
+    report = chip_smoke.ptxas_report(K9_PTXAS_LOG)
+    by_kernel = {chip_smoke.k9_instance(name): info for name, info in report.items()}
+    assert by_kernel == {
+        ("flash_attention_wgmma_kernel", 128): dict(registers=168, static_smem_bytes=0,
+                                                     spill_stores=0, spill_loads=0),
+        ("flash_attention_kernel", 64): dict(registers=122, static_smem_bytes=16,
+                                             spill_stores=4, spill_loads=12)}
+    with pytest.raises(AssertionError):
+        chip_smoke.k9_instance("_ZN2wg12other_kernelILi64EEEv")
+    sass = ("\n\tcode for sm_90a\n\t\tFunction : fa_wgmma\n"
+            "        /*0010*/  UTMALDG.4D [UR8], [UR16] ;\n"
+            "        /*0020*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;\n"
+            "        /*0030*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;\n"
+            "\n\t\tFunction : fa_f32\n        /*0010*/  FFMA R1, R2, R3, R1 ;\n")
+    assert chip_smoke.sass_ops(sass, chip_smoke.K9_SASS_OPS) == {
+        "fa_wgmma": {"HGMMA": 2, "UTMALDG": 1}, "fa_f32": {"HGMMA": 0, "UTMALDG": 0}}
+
+
 def test_serve_without_device_needs_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "phi3-medium-14b", "--prompt-len", "8", "--gen", "2"])

@@ -10,7 +10,10 @@ Phases, each of which asserts (any failure exits non-zero):
      SASS checked for wgmma (HGMMA) and TMA loads (UTMALDG);
   3. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes, and time it beside its bound, the plain version and
-     (for the embedding bag) the one PyTorch call computing the same function;
+     (where there is one) the one PyTorch call computing the same function;
+     the sparse Adagrad also at the threaded runner's shape and at a hot
+     shape (a quarter of the occurrences on one row), with its runs and
+     tiles, and K5's out-of-place pull-back in turns with torch.lerp;
   4. the main path: DLRM at the full width of configs/dlrm_ctr.py::CONFIG,
      shadow EASGD on the flat engine, R=4 trainers x M=4 Hogwild threads x
      B=128, through ``HogwildSim``; then evaluation, a short fixed_rate run
@@ -93,14 +96,16 @@ MARKER_KERNEL, MARKER_CYCLES, SPIN_HZ = "spin_kernel", 10_000, 1.98e9
 TRACE_PADS_S = (0.05, 0.25, 1.0)
 
 # the hand-written kernels' __global__ names, as the profiler reports them,
-# by the source (kernels/<source>/csrc/<source>.cu) that must build each
+# by the source (kernels/<source>/csrc/<source>.cu) that must build each; a
+# tuple names the kernels that one wrapper call launches, once each
 DEVICE_NAMES_BY_SOURCE = {
     "embedding_bag": {"embedding_bag": "embedding_bag_kernel"},
-    "sparse_adagrad": {"sparse_adagrad": "sparse_adagrad_rows_kernel"},
+    "sparse_adagrad": {"sparse_adagrad": ("sparse_adagrad_tile_kernel",
+                                          "sparse_adagrad_combine_kernel")},
     "easgd_update": {"easgd_round": "easgd_round_kernel", "easgd_pair": "easgd_pair_kernel"},
     "ma_update": {"replica_mean": "replica_mean_rows_kernel",
                   "replica_mean_rows": "replica_mean_rows_kernel",
-                  "ma_update": "ma_pullback_rows_kernel",
+                  "ma_update": "ma_pullback_all_kernel",
                   "ma_update_rows": "ma_pullback_rows_kernel"},
     "bmuf_update": {"bmuf_update": "bmuf_rows_kernel", "bmuf_update_rows": "bmuf_rows_kernel"},
     "gossip_update": {"gossip_pair": "gossip_pair_kernel", "gossip_round": "gossip_round_kernel"},
@@ -114,6 +119,15 @@ K9_SASS_OPS = ("HGMMA", "UTMALDG")
 KERNELS = tuple(DEVICE_NAMES_BY_SOURCE)
 K1 = DEVICE_NAMES_BY_SOURCE["embedding_bag"]["embedding_bag"]
 DEVICE_NAMES = {k: g for names in DEVICE_NAMES_BY_SOURCE.values() for k, g in names.items()}
+
+
+def globals_of(dev_name):
+    """The __global__ names one wrapper call launches (a name or a tuple)."""
+    return (dev_name,) if isinstance(dev_name, str) else dev_name
+
+
+def hits(dev_name, event_name):
+    return any(g in event_name for g in globals_of(dev_name))
 
 
 def emit(obj):
@@ -252,9 +266,10 @@ def event_ms(torch, fn, reps=20, warm=3):
 
 
 def launched(dev_name, n):
-    """A trace check: the kernel ``dev_name`` launched ``n`` times."""
+    """A trace check: the kernel(s) ``dev_name`` of ``n`` wrapper calls
+    launched, each kernel once a call."""
     return lambda events: sum(c for k, (_, c) in device_kernels(events).items()
-                              if dev_name in k) == n
+                              if hits(dev_name, k)) == n * len(globals_of(dev_name))
 
 
 def device_ms(torch, fn, reps=20, check=None):
@@ -271,8 +286,9 @@ def device_ms(torch, fn, reps=20, check=None):
 
 
 def timings(torch, kernel_fn, plain_fn, dev_name, library_fn=None, reps=20):
-    """The kernel's device time a launch (``ms``; each wrapper call launches
-    it once) and with its wrapper's other launches (``op_ms``), the plain
+    """The kernel's device time a call (``ms``; each wrapper call launches
+    it, or each of its kernels, once) and with its wrapper's other launches
+    (``op_ms``), the plain
     version's and the library call's device time a call, and event-timed
     calls of the wrapper and the plain version. A figure whose traces all
     lost events is timed with ``event_ms`` instead and named in
@@ -285,8 +301,8 @@ def timings(torch, kernel_fn, plain_fn, dev_name, library_fn=None, reps=20):
         n_traced = 0
     else:
         n_traced = reps
-        hits = [t for n, (t, _) in op.items() if dev_name in n]
-        ms, op_ms = sum(hits) / reps, sum(t for t, _ in op.values()) / reps
+        ms = sum(t for n, (t, _) in op.items() if hits(dev_name, n)) / reps
+        op_ms = sum(t for t, _ in op.values()) / reps
 
     def per_call(key, fn):
         by_name = device_ms(torch, fn, reps)
@@ -310,15 +326,99 @@ def bound(nbytes, flops, mem_rate, op_rate=FP32_RATE):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def run_stats(torch, ids, tile):
+    """The sorted occurrence list's runs as K2's tiles see them: distinct
+    rows, the longest run, runs longer than a tile, tiles, and the runs that
+    cross a tile boundary (each leaves partials for the combine kernel)."""
+    rows = torch.sort(ids.reshape(-1))[0]
+    n = rows.numel()
+    counts = torch.unique_consecutive(rows, return_counts=True)[1]
+    cut = torch.arange(tile, n, tile, device=rows.device)
+    crossing = rows[cut][rows[cut] == rows[cut - 1]]
+    return {"n_items": n, "unique_rows": counts.numel(), "longest_run": int(counts.max()),
+            "runs_longer_than_tile": int((counts > tile).sum()), "tile": tile,
+            "tiles": -(-n // tile), "crossing_runs": torch.unique(crossing).numel()}
+
+
+def adagrad_f64(torch, table, acc, ids, g, lr, eps=1e-8):
+    """The plain version's formula in float64 over the rows ``ids`` names:
+    (those rows, their table rows, their acc rows)."""
+    rows, slot = torch.unique(ids.reshape(-1).long(), return_inverse=True)
+    g64 = g.double().repeat_interleave(ids.shape[1], dim=0)
+    a = acc[rows].double().index_add_(0, slot, g64 * g64)
+    s = torch.zeros_like(a).index_add_(0, slot, g64)
+    return rows, table[rows].double() - lr * torch.rsqrt(a + eps) * s, a
+
+
+def check_sparse_adagrad(torch, name, shape, table, acc, ids, g, lr, mem_rate, hot=False):
+    """K2 on clones of ``table``/``acc`` with (n_bags, m) ``ids``: repeatable
+    bit for bit, rows not named untouched, within 1e-5 of its formula in
+    float64 and of the plain version; timed beside its bound. At the hot
+    shape the plain version itself is off its formula by more than 1e-5 (its
+    index_add_ adds ~5e4 steps onto one row, each rounded), so there the
+    kernel is held to the float64 formula alone and both errors are kept.
+    Returns the table row (launches filled later)."""
+    from repro_torch.kernels.sparse_adagrad.ops import sparse_adagrad_op
+    from repro_torch.kernels.sparse_adagrad.ref import sparse_adagrad_ref
+    from repro_torch.kernels.sparse_adagrad.sparse_adagrad import tile_size
+
+    ka, kb = (table.clone(), acc.clone()), (table.clone(), acc.clone())
+    one_launch(sparse_adagrad_op, lambda: sparse_adagrad_op(*ka, ids, g, lr=lr))
+    sparse_adagrad_op(*kb, ids, g, lr=lr)
+    assert torch.equal(ka[0], kb[0]) and torch.equal(ka[1], kb[1]), (name, "not repeatable")
+    del kb
+    touched = torch.unique(ids)
+    untouched = torch.ones(table.shape[0], dtype=torch.bool, device="cuda")
+    untouched[touched.long()] = False
+    assert torch.equal(ka[0][untouched], table[untouched]), (name, "untouched table rows changed")
+    assert torch.equal(ka[1][untouched], acc[untouched]), (name, "untouched acc rows changed")
+    del untouched
+    pa = sparse_adagrad_ref(table.clone(), acc.clone(), ids, g, lr)
+    err = max((ka[0] - pa[0]).abs().max().item(), (ka[1] - pa[1]).abs().max().item())
+    # per-tile sums and their combine in tile order against index_add_'s
+    # atomics, in another order, over runs of up to ~10^3 occurrences (5e4 hot)
+    tol = 1e-5
+    named, t64, a64 = adagrad_f64(torch, table, acc, ids, g, lr)
+    exact = {}
+    for who, (t, a) in (("kernel", ka), ("plain", pa)):
+        exact[who] = max((t[named].double() - t64).abs().max().item(),
+                         (a[named].double() - a64).abs().max().item())
+    for k, want in zip(ka, (t64, a64)):
+        torch.testing.assert_close(k[named], want.float(), rtol=tol, atol=tol)
+    if not hot:
+        for k, p in zip(ka, pa):
+            torch.testing.assert_close(k, p, rtol=tol, atol=tol)
+    del named, t64, a64
+    n_bags, m = ids.shape
+    d = table.shape[1]
+    stats = run_stats(torch, ids, tile_size())
+    n_items, n_unique = stats["n_items"], stats["unique_rows"]
+    # g read once, the sorted ids and the bags once, each distinct row's
+    # table and acc read and written once
+    nbytes = (n_bags * d + 2 * n_items + n_unique * 4 * d) * 4
+    b_ms, b_by = bound(nbytes, n_items * 4 * d, mem_rate)
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/sparse_adagrad/csrc/sparse_adagrad.cu",
+               replaces="src/repro/kernels/sparse_adagrad/sparse_adagrad.py:89",
+               max_abs_err=err, err_vs_f64=exact["kernel"], plain_err_vs_f64=exact["plain"],
+               tol=tol, bound_ms=b_ms, bound_by=b_by, shape=shape,
+               **timings(torch, lambda: sparse_adagrad_op(*ka, ids, g, lr=lr),
+                         lambda: sparse_adagrad_ref(*pa, ids, g, lr),
+                         DEVICE_NAMES["sparse_adagrad"]))
+    emit({"phase": "kernel", **row, **stats, "d": d})
+    del ka, pa
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_kernels(torch, sim, st, mem_rate):
     """Phase 3. Returns {name: row} for the kernel table (launches filled later)."""
+    from repro_torch.embeddings import shards
     from repro_torch.embeddings import table as emb
     from repro_torch.kernels.easgd_update.ops import easgd_round_op
     from repro_torch.kernels.easgd_update.ref import easgd_round_ref
     from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-    from repro_torch.kernels.sparse_adagrad.ops import sparse_adagrad_op
-    from repro_torch.kernels.sparse_adagrad.ref import sparse_adagrad_ref
 
     cfg = sim.cfg
     F, m, d = cfg.n_sparse_features, cfg.multi_hot, cfg.embedding_dim
@@ -350,38 +450,34 @@ def check_kernels(torch, sim, st, mem_rate):
     emit({"phase": "kernel", **rows["embedding_bag"], "n_bags": n_bags, "m": m, "d": d,
           "unique_rows": n_unique})
 
-    # K2 · sparse Adagrad, on clones of the sim's tables (4.5 GB each set)
+    # K2 · sparse Adagrad: at the sim's shape (iteration 0's ids), at the
+    # threaded runner's (one trainer's batch on its heaviest PS), and at a hot
+    # shape (a quarter of the sim's occurrences on one row)
     gen = torch.Generator().manual_seed(1)
     g = (torch.randn((n_bags, d), generator=gen) * 0.01).to("cuda")
-    ka, kb = (table.clone(), acc.clone()), (table.clone(), acc.clone())
-    sparse_adagrad_op(*ka, ids, g, lr=sim.emb_lr)
-    sparse_adagrad_op(*kb, ids, g, lr=sim.emb_lr)
-    assert torch.equal(ka[0], kb[0]) and torch.equal(ka[1], kb[1]), "sparse_adagrad not repeatable"
-    del kb
-    untouched = torch.ones(table.shape[0], dtype=torch.bool, device="cuda")
-    untouched[touched.long()] = False
-    assert torch.equal(ka[0][untouched], table[untouched]), "untouched table rows changed"
-    assert torch.equal(ka[1][untouched], acc[untouched]), "untouched acc rows changed"
-    del untouched
-    pa = sparse_adagrad_ref(table.clone(), acc.clone(), ids, g, sim.emb_lr)
-    err = max((ka[0] - pa[0]).abs().max().item(), (ka[1] - pa[1]).abs().max().item())
-    # one running sum per row against index_add_'s atomics, in another order,
-    # over runs of up to ~10^3 occurrences of a hot row
-    tol = 1e-5
-    for k, p in zip(ka, pa):
-        torch.testing.assert_close(k, p, rtol=tol, atol=tol)
-    nbytes = (n_bags * d + n_items + n_unique * 4 * d) * 4
-    b_ms, b_by = bound(nbytes, n_items * 4 * d, mem_rate)
-    rows["sparse_adagrad"] = dict(
-        name="sparse_adagrad", route="cuda",
-        source="src/repro_torch/kernels/sparse_adagrad/csrc/sparse_adagrad.cu",
-        replaces="src/repro/kernels/sparse_adagrad/sparse_adagrad.py:89",
-        max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
-        **timings(torch, lambda: sparse_adagrad_op(*ka, ids, g, lr=sim.emb_lr),
-                  lambda: sparse_adagrad_ref(*pa, ids, g, sim.emb_lr),
-                  DEVICE_NAMES["sparse_adagrad"]))
-    emit({"phase": "kernel", **rows["sparse_adagrad"], "n_items": n_items, "unique_rows": n_unique})
-    del ka, pa
+    rows["sparse_adagrad"] = check_sparse_adagrad(
+        torch, "sparse_adagrad", "sim: iteration 0 of the ELP batch", table, acc, ids, g,
+        sim.emb_lr, mem_rate)
+    plan = shards.plan_shards(sim.spec, N_SHARDS, B)
+    local = batch["sparse"].reshape(-1, F, m)[:B]  # one trainer's batch, per-feature ids
+    heaviest = max(range(plan.n_shards),
+                   key=lambda s_: (len(plan.bins[s_]),
+                                   torch.unique(shards._route(plan, s_, local)).numel()))
+    ps = shards.shard_states(plan, st.emb_state)[heaviest]
+    loc = shards._route(plan, heaviest, local).reshape(-1, m).contiguous()
+    g_ps = (torch.randn((loc.shape[0], d), generator=gen) * 0.01).to("cuda")
+    rows["sparse_adagrad_threaded_shape"] = check_sparse_adagrad(
+        torch, "sparse_adagrad_threaded_shape",
+        f"threaded: B={B} on PS {heaviest} of {plan.n_shards} ({len(plan.bins[heaviest])} "
+        f"features, {plan.shard_rows[heaviest]} rows)", ps["table"], ps["acc"], loc, g_ps,
+        sim.emb_lr, mem_rate)
+    del ps
+    hot = ids.clone().reshape(-1)
+    pick = torch.randperm(n_items, generator=gen)[:n_items // 4].to("cuda")
+    hot[pick] = 0  # row 0 of table 0
+    rows["sparse_adagrad_hot_shape"] = check_sparse_adagrad(
+        torch, "sparse_adagrad_hot_shape", "hot: the sim's ids, a quarter of them on row 0",
+        table, acc, hot.reshape(n_bags, m), g, sim.emb_lr, mem_rate, hot=True)
     torch.cuda.empty_cache()
 
     # K3 · EASGD round on the flat (4, 4096, 128) buffer, replicas made to differ
@@ -461,6 +557,7 @@ def check_sync_kernels(torch, st, mem_rate):
     """Phase 3, K5-K7: every entry point against its plain version on the
     main path's (4, 4096, 128) flat buffer, with replicas that differ. Returns
     {name: row} for the kernel table (launches filled later)."""
+    from repro_torch.kernels import backend
     from repro_torch.kernels.bmuf_update.ops import bmuf_sync_op, bmuf_sync_rows_op
     from repro_torch.kernels.bmuf_update.ref import bmuf_update_ref, bmuf_update_rows_ref
     from repro_torch.kernels.gossip_update.ops import gossip_pair_flat_op, gossip_round_op
@@ -493,7 +590,7 @@ def check_sync_kernels(torch, st, mem_rate):
                   lambda: ma_ref.replica_mean_ref(stack0), DEVICE_NAMES["replica_mean"],
                   lambda: torch.mean(stack0, 0)))
     emit_row(rows["replica_mean"], rows=R_)
-    live = i32([0, 2, 3])
+    live = backend.index_tensor([0, 2, 3], stack0.device)  # as core/algorithms.py makes them
     A = live.shape[0]
     got = one_launch(ma_ops.replica_mean_rows_op, lambda: ma_ops.replica_mean_rows_op(stack0, live))
     err = max_err([got], [ma_ref.replica_mean_rows_ref(stack0, live)])
@@ -524,12 +621,20 @@ def check_sync_kernels(torch, st, mem_rate):
     one_launch(ma_ops.ma_sync_op, lambda: ma_ops.ma_sync_op(src, mean, 0.5, out=out))
     err = max_err([out], [ma_ref.ma_update_ref(stack0[1:2].clone(), mean, 0.5)])
     assert err <= SYNC_TOL and torch.equal(src, keep[1:2]), ("ma_update out of place", err)
-    emit_row(sync_row("ma_update", "ma_update/csrc/ma_update.cu", "ma_update/ma_update.py:168",
-                      err, bound(3 * plane + 4, 3 * elems, mem_rate),
-                      **timings(torch, lambda: ma_ops.ma_sync_op(src, mean, 0.5, out=out),
-                                lambda: ma_ref.ma_update_ref(src, mean, 0.5, out=out),
-                                DEVICE_NAMES["ma_update"],
-                                lambda: torch.lerp(src, mean, 0.5, out=out))), in_place=False)
+    pull = lambda: ma_ops.ma_sync_op(src, mean, 0.5, out=out)  # noqa: E731
+    lerp = lambda: torch.lerp(src, mean, 0.5, out=out)  # noqa: E731
+    row = sync_row("ma_update", "ma_update/csrc/ma_update.cu", "ma_update/ma_update.py:168",
+                   err, bound(3 * plane + 4, 3 * elems, mem_rate),
+                   **timings(torch, pull, lambda: ma_ref.ma_update_ref(src, mean, 0.5, out=out),
+                             DEVICE_NAMES["ma_update"], lerp))
+    # the kernel and torch.lerp(out=) in turns: kernel, lerp, lerp, kernel, twice
+    turns = {"kernel": [], "lerp": []}
+    for order in (("kernel", "lerp"), ("lerp", "kernel")) * 2:
+        for who in order:
+            by_name = device_ms(torch, pull if who == "kernel" else lerp)
+            turns[who].append(None if by_name is None
+                              else sum(t for t, _ in by_name.values()) / 20)
+    emit_row(row, in_place=False, in_turns_ms=turns)
     ks = stack0.clone()
     one_launch(ma_ops.ma_sync_rows_op, lambda: ma_ops.ma_sync_rows_op(ks, mean, live, 0.5))
     err = max_err([ks], [ma_ref.ma_update_rows_ref(stack0.clone(), mean, live, 0.5)])
@@ -968,9 +1073,10 @@ def profile_window(torch, sim, state, iters):
     by_name = device_kernels(events)
     busy = sum(t for t, _ in by_name.values())
     per_kernel = {}
-    for k, dev_name in DEVICE_NAMES.items():
-        hits = [(t, c) for n, (t, c) in by_name.items() if dev_name in n]
-        per_kernel[k] = sum(h[0] for h in hits) / max(sum(h[1] for h in hits), 1)
+    for k, dev_name in DEVICE_NAMES.items():  # device ms a wrapper call
+        found = [(t, c) for n, (t, c) in by_name.items() if hits(dev_name, n)]
+        calls = sum(c for _, c in found) / len(globals_of(dev_name))
+        per_kernel[k] = sum(t for t, _ in found) / max(calls, 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]
     return {"iters": iters, "wall_ms": wall_ms, "device_ms": busy, "idle_share": 1 - busy / wall_ms,
@@ -1165,7 +1271,7 @@ def main() -> int:
             ptxas = [ln.strip() for ln in f
                      if "registers" in ln or "spill" in ln or "entry function" in ln]
         emit({"phase": "build", "kernel": name, "ptxas": ptxas})
-        for fn in set(DEVICE_NAMES_BY_SOURCE[name].values()):
+        for fn in {g for v in DEVICE_NAMES_BY_SOURCE[name].values() for g in globals_of(v)}:
             assert any(fn in ln for ln in ptxas), f"no {fn} built"
     emit({"phase": "build", "built": built, "seconds": time.perf_counter() - t0})
     k9_build_report(backend)
@@ -1228,8 +1334,10 @@ def main() -> int:
           "launches": launches, "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
     assert launches["easgd_pair"] == 0, launches  # HogwildSim lands with the round kernel
     check_sync_counts("sim_easgd", launches, {})
-    for k, row in rows.items():
-        row["launches"] = launches[k]
+    for k in ops:
+        rows[k]["launches"] = launches[k]
+    # the hot shape stresses the sim path's kernel: its launches are the sim's
+    rows["sparse_adagrad_hot_shape"]["launches"] = launches["sparse_adagrad"]
     t0 = time.perf_counter()
     for t in range(TIMED_ITERS):
         sim.make_batch(t)
@@ -1383,6 +1491,7 @@ def main() -> int:
     rows["easgd_pair"]["launches"] = launches["easgd_pair"]
     for k in ("embedding_bag", "sparse_adagrad"):
         rows[k]["launches_threaded"] = launches[k]
+    rows["sparse_adagrad_threaded_shape"]["launches"] = launches["sparse_adagrad"]
     snap_ms = snapshot_ms(torch, runner.emb)
     snap_bytes = 2 * sum(t.numel() * 4 for st in runner.emb.states for t in st.values())
     emit({"phase": "threaded_snapshot", "snapshot_all_ms": snap_ms, "bytes": snap_bytes,

@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,8 +39,11 @@ _FNS: Dict[str, ctypes._CFuncPtr] = {}
 # Re-entrant: ``load`` calls ``build`` and ``c_function`` calls ``load``.
 _BUILD_LOCK = threading.RLock()
 _COUNT_LOCK = threading.Lock()
-# Small int32 index vectors (replica ids), made once per (device, ids).
+# Small int32 index vectors (replica ids), made once per (device, ids), and
+# the host ids of each such tensor, by its id() (the tensors live as long as
+# the module, so no other tensor takes that id()).
 _INDEX: Dict[tuple, torch.Tensor] = {}
+_HOST_IDS: Dict[int, Tuple[torch.Tensor, Tuple[int, ...]]] = {}
 _INDEX_LOCK = threading.Lock()
 
 
@@ -168,7 +171,19 @@ def index_tensor(ids: Sequence[int], device: torch.device) -> torch.Tensor:
         t = _INDEX.get(key)
         if t is None:
             t = _INDEX[key] = torch.tensor(key[1], dtype=torch.int32).to(device)
+            _HOST_IDS[id(t)] = (t, key[1])
         return t
+
+
+def host_ids(t: torch.Tensor) -> Tuple[int, ...]:
+    """The ids of a 1-D int tensor as host ints: for a tensor that
+    ``index_tensor`` made, the ids it was made from (no read from the card);
+    for any other, a read back (which waits for the card)."""
+    with _INDEX_LOCK:
+        hit = _HOST_IDS.get(id(t))
+    if hit is not None and hit[0] is t:
+        return hit[1]
+    return tuple(int(i) for i in t.tolist())
 
 
 def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:

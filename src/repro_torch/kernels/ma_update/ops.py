@@ -14,7 +14,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.ma_update.ma_update import ma_pullback_rows, replica_mean_rows
+from repro_torch.kernels.ma_update.ma_update import (
+    ma_pullback_all, ma_pullback_rows, replica_mean_rows)
 from repro_torch.kernels.ma_update.ref import (
     ma_update_ref, ma_update_rows_ref, replica_mean_ref, replica_mean_rows_ref)
 
@@ -62,7 +63,7 @@ def ma_sync_op(stack: torch.Tensor, mean: torch.Tensor, alpha: float, *,
     threaded round's pull-back, whose old planes trainers may still read."""
     if not stack.is_cuda:
         return ma_update_ref(stack, mean, alpha, out=out)
-    got = ma_pullback_rows(stack, stack if out is None else out, mean, _all_rows(stack), alpha)
+    got = ma_pullback_all(stack, stack if out is None else out, mean, alpha)
     backend.count_launch(ma_sync_op)
     return got
 
@@ -73,11 +74,13 @@ ma_sync_op.launches = 0
 def ma_sync_rows_op(stack: torch.Tensor, mean: torch.Tensor, rows: torch.Tensor,
                     alpha: float) -> torch.Tensor:
     """Pull only the LIVE rows of a (R, n, 128) buffer toward ``mean``, in
-    place; dead rows stay bitwise unchanged and are never read."""
+    place; dead rows stay bitwise unchanged and are never read. ``rows`` made
+    by ``backend.index_tensor`` (as the algorithms make them) reach the kernel
+    from their host ids; any other tensor is read back first."""
     _need_rows(rows)
     if not stack.is_cuda:
         return ma_update_rows_ref(stack, mean, rows, alpha)
-    got = ma_pullback_rows(stack, stack, mean, rows, alpha)
+    got = ma_pullback_rows(stack, stack, mean, backend.host_ids(rows), alpha)
     backend.count_launch(ma_sync_rows_op)
     return got
 

@@ -1,9 +1,11 @@
 """Public wrapper of the sparse-Adagrad kernel.
 
-CUDA tensors go through the hand-written kernel: the wrapper lists the
-(bag, hot) occurrences, sorts them by row with a stable sort, and the kernel
-gives each run of equal rows to one thread group. CPU tensors go through the
-plain version. Both update ``table`` and ``acc`` in place.
+CUDA tensors go through the hand-written kernel: the wrapper sorts the
+(bag, hot) occurrences by row with a stable sort and hands the kernel the
+sorted ids and the sort's permutation; the kernel cuts the sorted list into
+fixed tiles, so no run of a hot row is walked by one thread group. CPU
+tensors go through the plain version. Both update ``table`` and ``acc`` in
+place.
 """
 from __future__ import annotations
 
@@ -24,9 +26,10 @@ def sparse_adagrad_op(table: torch.Tensor, acc: torch.Tensor, idx: torch.Tensor,
     g = g_pooled.reshape(-1, g_pooled.shape[-1])
     if not table.is_cuda:
         return sparse_adagrad_ref(table, acc, flat_idx, g, lr, eps)
+    if flat_idx.numel() == 0:  # no occurrence: nothing to launch
+        return table, acc
     rows, order = torch.sort(flat_idx.reshape(-1).to(torch.int32), stable=True)
-    bags = torch.div(order, m, rounding_mode="floor").to(torch.int32)
-    sparse_adagrad_rows(table, acc, rows, bags, g.float().contiguous(), lr=lr, eps=eps)
+    sparse_adagrad_rows(table, acc, rows, order, m, g.float().contiguous(), lr=lr, eps=eps)
     backend.count_launch(sparse_adagrad_op)
     return table, acc
 

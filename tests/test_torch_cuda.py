@@ -63,6 +63,105 @@ def test_sparse_adagrad_kernel(gen, n_bags, m):
     assert torch.equal(kt[60:], table[60:]) and torch.equal(ka[60:], acc[60:])
 
 
+K2_TILE = 32  # csrc/sparse_adagrad.cu's TILE
+
+
+def _adagrad_f64(table, acc, idx, g, lr, eps=1e-8):
+    """The plain version's formula evaluated in float64, rounded to f32."""
+    rows = idx.reshape(-1).long()
+    g64 = g.double().repeat_interleave(idx.shape[1], dim=0)
+    a = acc.double().index_add_(0, rows, g64 * g64)
+    s = torch.zeros_like(a).index_add_(0, rows, g64)
+    return (table.double() - lr * torch.rsqrt(a + eps) * s).float(), a.float()
+
+
+def _adagrad_checked(table, acc, idx, g, lr=0.05, ref_keep=None, ref=sparse_adagrad_ref):
+    """K2 on clones: one launch, bitwise repeatable, rows not named bitwise
+    unchanged, within 1e-5 of ``ref`` (over the bags ``ref_keep`` selects,
+    where some ids are out of range). Returns the kernel's result."""
+    before = sparse_adagrad_op.launches
+    kt, ka = sparse_adagrad_op(table.clone(), acc.clone(), idx, g, lr=lr)
+    assert sparse_adagrad_op.launches == before + 1
+    kt2, ka2 = sparse_adagrad_op(table.clone(), acc.clone(), idx, g, lr=lr)
+    assert torch.equal(kt, kt2) and torch.equal(ka, ka2)  # no atomics: repeatable
+    keep = slice(None) if ref_keep is None else ref_keep
+    pt, pa = ref(table.clone(), acc.clone(), idx[keep], g[keep], lr)
+    torch.testing.assert_close(kt, pt, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ka, pa, rtol=1e-5, atol=1e-5)
+    untouched = torch.ones(table.shape[0], dtype=torch.bool, device="cuda")
+    named = idx[(idx >= 0) & (idx < table.shape[0])].long()
+    untouched[named] = False
+    assert torch.equal(kt[untouched], table[untouched])
+    assert torch.equal(ka[untouched], acc[untouched])
+    return kt, ka
+
+
+@pytest.mark.parametrize("d", [4, 64, 128, 136])
+@pytest.mark.parametrize("lead", [0, 1, 17, 31])
+def test_sparse_adagrad_runs_across_tiles(gen, d, lead):
+    """Runs of T-1, T, T+1 and 3T+5 occurrences (T the kernel's tile),
+    shifted by a lead run so that they straddle tile boundaries at every
+    offset; the occurrences come shuffled, one a bag. n_items is no multiple
+    of T. d = 136 takes two passes of the kernels' 32-word thread groups."""
+    T = K2_TILE
+    lengths = [lead, T - 1, 1, T, 2, T + 1, 3 * T + 5, 1, T - 1]
+    ids = torch.cat([torch.full((n,), 3 * k, dtype=torch.int32) for k, n in enumerate(lengths)])
+    ids = ids[torch.randperm(ids.numel(), generator=gen)]
+    assert ids.numel() % T != 0
+    n_rows = 3 * len(lengths) + 4
+    table = torch.randn((n_rows, d), generator=gen).cuda()
+    acc = torch.rand((n_rows, d), generator=gen).cuda()
+    g = torch.randn((ids.numel(), d), generator=gen).cuda()
+    _adagrad_checked(table, acc, ids.reshape(-1, 1).cuda(), g)
+
+
+def test_sparse_adagrad_drops_out_of_range_ids_at_both_ends(gen):
+    """Ids below 0 sort to the front, ids >= n_rows to the back; runs of
+    them (longer than a tile) are dropped and leave every row alone."""
+    n_rows, d = 50, 64
+    bad = [-7] * 40 + [-1] * 3 + [n_rows] * 45 + [n_rows + 9] * 2
+    good = torch.randint(0, n_rows, (300,), generator=gen, dtype=torch.int32).tolist()
+    ids = torch.tensor(bad + good, dtype=torch.int32)
+    ids = ids[torch.randperm(ids.numel(), generator=gen)].reshape(-1, 1).cuda()
+    table = torch.randn((n_rows, d), generator=gen).cuda()
+    acc = torch.rand((n_rows, d), generator=gen).cuda()
+    g = torch.randn((ids.shape[0], d), generator=gen).cuda()
+    in_range = ((ids >= 0) & (ids < n_rows)).reshape(-1)
+    _adagrad_checked(table, acc, ids, g, ref_keep=in_range)
+
+
+def test_sparse_adagrad_one_row_of_100k_occurrences(gen):
+    """One row holds 100,000 of 130,000 occurrences (3,125 tiles of one run).
+    With g in {+-1/4, +-1/2, +-1} every partial sum of g and g^2 is exact in
+    f32, so the accumulator is held against the plain version (whose
+    index_add_ adds them with atomics in any order). Its table update is not:
+    it adds 10^5 steps of ~1e-5 onto values ~1 one by one, each rounded at
+    the value's ulp, and drifts from the exact result by up to 7e-5 on the
+    card. The kernel's result is held against the same formula in float64."""
+    n_rows, d, hot = 400, 64, 123
+    ids = torch.cat([torch.full((100_000,), hot, dtype=torch.int32),
+                     torch.randint(0, n_rows, (30_000,), generator=gen, dtype=torch.int32)])
+    ids = ids[torch.randperm(ids.numel(), generator=gen)].reshape(-1, 4).cuda()
+    table = torch.randn((n_rows, d), generator=gen).cuda()
+    acc = torch.rand((n_rows, d), generator=gen).cuda()
+    levels = torch.tensor([-1.0, -0.5, -0.25, 0.25, 0.5, 1.0])
+    g = levels[torch.randint(0, 6, (ids.shape[0], d), generator=gen)].cuda()
+    _, ka = _adagrad_checked(table, acc, ids, g, lr=0.01, ref=_adagrad_f64)
+    _, pa = sparse_adagrad_ref(table.clone(), acc.clone(), ids, g, 0.01)
+    torch.testing.assert_close(ka, pa, rtol=1e-5, atol=1e-5)
+
+
+def test_sparse_adagrad_with_no_occurrence_launches_nothing(gen):
+    table = torch.randn((10, 8), generator=gen).cuda()
+    acc = torch.rand((10, 8), generator=gen).cuda()
+    before = sparse_adagrad_op.launches
+    kt, ka = sparse_adagrad_op(table.clone(), acc.clone(),
+                               torch.zeros((0, 4), dtype=torch.int32).cuda(),
+                               torch.zeros((0, 8)).cuda(), lr=0.1)
+    assert sparse_adagrad_op.launches == before
+    assert torch.equal(kt, table) and torch.equal(ka, acc)
+
+
 @pytest.mark.parametrize("fired", [[1], [3, 0, 2], [0, 1, 2, 3]])
 def test_easgd_round_kernel(gen, fired):
     stack = torch.randn((4, 256, 128), generator=gen).cuda()
@@ -144,6 +243,7 @@ def test_tiny_threaded_run_on_the_card(gen):
 # K5 · MA, K6 · BMUF, K7 · gossip, and the elastic paths that run them
 # ---------------------------------------------------------------------------
 
+from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.kernels.bmuf_update.ops import bmuf_sync_op, bmuf_sync_rows_op  # noqa: E402
 from repro_torch.kernels.bmuf_update.ref import (  # noqa: E402
     bmuf_update_ref, bmuf_update_rows_ref)
@@ -183,11 +283,36 @@ def test_ma_pullback_kernels(gen, n):
     torch.testing.assert_close(ks, ma_ref.ma_update_rows_ref(stack.clone(), mean, rows, 0.3),
                                **SYNC_TOL)
     assert torch.equal(ks[0], stack[0]) and torch.equal(ks[2], stack[2])
-    src, out = stack[1:2].clone(), torch.empty_like(stack[1:2])
-    got = ma_ops.ma_sync_op(src, mean, 0.3, out=out)
-    assert got is out and torch.equal(src, stack[1:2])  # out of place: the source is only read
-    torch.testing.assert_close(out, ma_ref.ma_update_ref(stack[1:2].clone(), mean, 0.3),
-                               **SYNC_TOL)
+    for planes in ([1], [0, 1, 2]):  # out of place over 1 and 3 planes
+        src = stack[planes].clone()
+        out = torch.empty_like(src)
+        got = ma_ops.ma_sync_op(src, mean, 0.3, out=out)
+        assert got is out and torch.equal(src, stack[planes])  # the source is only read
+        torch.testing.assert_close(out, ma_ref.ma_update_ref(stack[planes].clone(), mean, 0.3),
+                                   **SYNC_TOL)
+    # live ids with a gap and one out of range, from the host tuple the
+    # algorithms' index_tensor keeps and from a plain device tensor
+    for rows in (backend.index_tensor([0, 3, 7], stack.device), _i32([0, 3, 7])):
+        before = ma_ops.ma_sync_rows_op.launches
+        ks = ma_ops.ma_sync_rows_op(stack.clone(), mean, rows, 0.3)
+        assert ma_ops.ma_sync_rows_op.launches == before + 1
+        want = ma_ref.ma_update_rows_ref(stack.clone(), mean, _i32([0, 3]), 0.3)
+        torch.testing.assert_close(ks, want, **SYNC_TOL)
+        assert torch.equal(ks[1], stack[1]) and torch.equal(ks[2], stack[2])  # dead rows
+
+
+def test_ma_pullback_over_more_ids_than_one_launch_takes(gen):
+    """70 replicas: the pull-back's ids go in launches of 64, in order."""
+    stack = torch.randn((70, 8, 128), generator=gen).cuda()
+    mean = torch.randn((8, 128), generator=gen).cuda()
+    ks = ma_ops.ma_sync_op(stack.clone(), mean, 0.3)
+    torch.testing.assert_close(ks, ma_ref.ma_update_ref(stack.clone(), mean, 0.3), **SYNC_TOL)
+    live = [i for i in reversed(range(70)) if i not in (5, 40)]  # 68 ids, out of order
+    ks = ma_ops.ma_sync_rows_op(stack.clone(), mean, backend.index_tensor(live, stack.device), 0.3)
+    want = ma_ref.ma_update_rows_ref(stack.clone(), mean, _i32(live), 0.3)
+    torch.testing.assert_close(ks, want, **SYNC_TOL)
+    dead = sorted(set(range(70)) - set(live))
+    assert torch.equal(ks[dead], stack[dead])
 
 
 @pytest.mark.parametrize("n", SIZES)

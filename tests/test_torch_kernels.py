@@ -115,6 +115,119 @@ def test_sparse_adagrad_untouched_rows_bit_identical():
     assert not np.array_equal(tt.numpy()[touched], table[touched])
 
 
+# The CUDA kernel's summation order (csrc/sparse_adagrad.cu): the stable-
+# sorted occurrences cut into tiles of K2_TILE positions; a run inside a tile
+# sums acc[r] + g^2 in order; a run that crosses tiles leaves one partial a
+# tile (from zero), and the tile where it begins adds them to acc[r] in tile
+# order, in contiguous chunks: 32 / lanes of them (one warp) for a run that
+# ends within the next 32 tiles, K2_COMBINE_THREADS / lanes (the block) else.
+K2_TILE, K2_COMBINE_THREADS = 32, 512
+
+
+def _tiled_adagrad(table, acc, idx, g, lr, eps=1e-8):
+    """The kernels' arithmetic in float32 numpy, in their order. Returns
+    (table, acc, the longest run)."""
+    table, acc = table.copy(), acc.copy()
+    n_rows, d = table.shape
+    m = idx.shape[1]
+    flat = idx.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    rows, bags = flat[order], order // m
+    n = rows.size
+    n_tiles = -(-n // K2_TILE)
+    zero = np.zeros(d, np.float32)
+    partial = {}
+
+    def apply(r, a, s):
+        acc[r] = a
+        table[r] = table[r] - np.float32(lr) * (np.float32(1) / np.sqrt(a + np.float32(eps))) * s
+
+    longest = 0
+    for t in range(n_tiles):
+        lo, hi = t * K2_TILE, min((t + 1) * K2_TILE, n)
+        s_in = lo > 0 and rows[lo - 1] == rows[lo]
+        s_out = hi < n and rows[hi] == rows[hi - 1]
+        p = lo
+        while p < hi:
+            r, e = rows[p], p
+            while e < hi and rows[e] == r:
+                e += 1
+            first, last = p == lo and s_in, e == hi and s_out
+            finish = not (first or last)
+            a, s = (acc[r].copy() if finish else zero.copy()), zero.copy()
+            for j in range(p, e):
+                x = g[bags[j]]
+                a, s = a + x * x, s + x
+            if finish:
+                apply(r, a, s)
+            else:
+                partial[t, 0 if first else 1] = (a, s)
+            p = e
+    lanes = min(d // 4, 32)
+    for t in range(n_tiles - 1):
+        lo, hi = t * K2_TILE, (t + 1) * K2_TILE
+        r = rows[hi - 1]
+        if rows[hi] != r or (lo > 0 and rows[lo] == r and rows[lo - 1] == r):
+            continue
+        end = t + 1
+        while (end + 1) * K2_TILE < n and rows[(end + 1) * K2_TILE] == r:
+            end += 1
+        parts = [partial[t, 1]] + [partial[k, 0] for k in range(t + 1, end + 1)]
+        chunks = (32 if end - t <= 32 else K2_COMBINE_THREADS) // lanes
+        per = -(-len(parts) // chunks)
+        a, s = acc[r].copy(), zero.copy()
+        for c in range(chunks):
+            q_c, s_c = zero.copy(), zero.copy()
+            for q, x in parts[c * per:(c + 1) * per]:
+                q_c, s_c = q_c + q, s_c + x
+            a, s = a + q_c, s + s_c
+        apply(r, a, s)
+    runs = np.diff(np.flatnonzero(np.r_[True, rows[1:] != rows[:-1], True]))
+    return table, acc, int(runs.max())
+
+
+def test_tile_order_constants_are_the_kernels():
+    """The emulation's tile and combine-block sizes are the CUDA source's."""
+    import re
+
+    from repro_torch.kernels import backend as kbackend
+
+    with open(kbackend.source_path("sparse_adagrad")) as f:
+        src = f.read()
+    found = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+             for k in ("TILE", "COMBINE_THREADS")}
+    assert found == {"TILE": K2_TILE, "COMBINE_THREADS": K2_COMBINE_THREADS}
+
+
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("n_bags,m,hot", [(512, 4, False), (300, 3, False), (1024, 4, True)])
+def test_sparse_adagrad_tile_order_matches_jax(n_bags, m, hot, d):
+    """The tile-and-combine order stays within the CPU tolerance of the
+    JAX kernel, on ids skewed as data/ctr.py skews them (a squared uniform
+    over a 100-row table: row 0 takes ~10%, so runs cross many tiles); the
+    hot case puts a quarter of the occurrences on row 0 besides."""
+    rng = np.random.default_rng(n_bags + d)
+    n_rows = 100
+    u = rng.uniform(size=(n_bags, m))
+    idx = np.minimum((u * u * n_rows).astype(np.int32), n_rows - 1)
+    if hot:
+        idx.reshape(-1)[rng.permutation(idx.size)[:idx.size // 4]] = 0
+    table = rng.standard_normal((n_rows, d)).astype(np.float32)
+    acc = rng.uniform(0.0, 1.0, (n_rows, d)).astype(np.float32)
+    g = rng.standard_normal((n_bags, d)).astype(np.float32)
+    t_t, t_a, longest = _tiled_adagrad(table, acc, idx, g, 0.05)
+    assert longest > (33 if hot else 2) * K2_TILE  # runs across tiles; hot: the block's combine
+    j_t, j_a = j_sparse_adagrad_op(jnp.asarray(table), jnp.asarray(acc), jnp.asarray(idx),
+                                   jnp.asarray(g), lr=0.05)
+    np.testing.assert_allclose(t_t, np.asarray(j_t), **TOL)
+    np.testing.assert_allclose(t_a, np.asarray(j_a), **TOL)
+    p_t, p_a = sparse_adagrad_op(_t(table), _t(acc), _t(idx), _t(g), lr=0.05)
+    np.testing.assert_allclose(t_t, p_t.numpy(), **TOL)
+    np.testing.assert_allclose(t_a, p_a.numpy(), **TOL)
+    untouched = np.setdiff1d(np.arange(n_rows), idx)
+    assert np.array_equal(t_t[untouched], table[untouched])
+
+
 def test_table_oracle_and_fused_match_jax():
     """embeddings/table.py: lookup, the out-of-place oracle and the fused
     in-place update, per-feature ids (B, F, m) with the packed offsets."""
@@ -333,6 +446,22 @@ def test_launch_counters_are_exact_under_threads():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert op.launches == 4 * 20_000
+
+
+def test_host_ids_come_from_index_tensor_without_a_read_back():
+    """The K5 pull-back takes its ids from the host: a tensor index_tensor
+    made gives back the ids it was made from, the same tensor every call; a
+    tensor made elsewhere (even with equal ids) is read back."""
+    cpu = torch.device("cpu")
+    made = backend.index_tensor([3, 0, 2], cpu)
+    assert made is backend.index_tensor((3, 0, 2), cpu)
+    made.fill_(7)  # a read back would now see 7s
+    assert backend.host_ids(made) == (3, 0, 2)
+    made.copy_(torch.tensor([3, 0, 2]))
+    other = torch.tensor([3, 0, 2], dtype=torch.int32)
+    assert backend.host_ids(other) == (3, 0, 2)
+    other[1] = 5
+    assert backend.host_ids(other) == (3, 5, 2)
 
 
 def test_concurrent_first_loads_build_once(monkeypatch):

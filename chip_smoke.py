@@ -32,12 +32,22 @@ Phases, each of which asserts (any failure exits non-zero):
      threaded path under MA, BMUF and Gossip, and an MA run in which a
      trainer joins (its bootstrap is the live mean, K5);
   6. the tiny elastic runs of MA, BMUF and Gossip on the card held against
-     the CPU's;
+     the CPU's; then the tiered embedding cache and checkpoints at full
+     width: the sim cached (a 1,048,576-row hot tier, lookahead 2) and
+     uncached from one seed, bitwise equal in losses, tables and
+     accumulators, with the cache's counters and a profiled window (and K2
+     on hot slots, bitwise the full table's only when sorted by row id);
+     the threaded runner cached (262,144 hot rows a PS) with four trainers,
+     and one fixed_rate trainer bitwise its uncached run; the sim's state
+     saved and restored bitwise (two more iterations agree), and restored
+     elastically at R+1 (the joined slot is EASGD's PS plane, its optimizer
+     state fresh);
   7. the serving path: the DLRM state released (device memory before and
      after), phi3-medium-14b at the full width of its CONFIG (bf16, 14.7 B
      parameters drawn on the card), K9 held against its plain version on
-     layer 0's q/k/v at B=4 x 2048 and at the reference tests' shapes (f32
-     on the CUDA-core kernel, bf16 on the tensor-core one), and
+     layer 0's q/k/v at B=4 x 2048 and at the reference tests' shapes and
+     granite-20b's MQA layout (f32 on the CUDA-core kernel, bf16 on the
+     tensor-core one), and
      timed there back to back, after an L2 flush and after a GEMM; then
      ``launch/serve.py``'s warm-up at the timed shape, 5 timed prefills
      (median and spread) + 31 greedy decode steps (exactly 40 K9 launches a
@@ -46,13 +56,17 @@ Phases, each of which asserts (any failure exits non-zero):
      the card held against the same weights on the CPU;
   8. the kernel table as one JSON line, then the result line.
 """
+import cProfile
 import gc
 import json
 import math
 import os
+import pstats
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -84,9 +98,16 @@ ATTN_TOL = {"float32": 2e-4}
 # output is rounded to bf16 once (half an ulp, 2^-9 relative), so
 # atol 6e-3, rtol 1e-2 elementwise and 1e-2 in the relative norm
 ATTN_BF16_ATOL, ATTN_BF16_RTOL, ATTN_BF16_REL_NORM = 6e-3, 1e-2, 1e-2
-# K9 against its plain version: (B, S, H, KV heads, d, causal), f32 and bf16
+# K9 against its plain version: (B, S, H, KV heads, d, causal), f32 and bf16;
+# the last is granite-20b's MQA layout (48 query heads on 1 KV head, d=128)
 ATTN_CASES = ((1, 128, 2, 2, 64, True), (1, 128, 2, 2, 64, False), (1, 100, 2, 2, 64, True),
-              (1, 100, 2, 2, 64, False), (2, 256, 8, 1, 128, True))
+              (1, 100, 2, 2, 64, False), (2, 256, 8, 1, 128, True), (1, 1024, 48, 1, 128, True))
+# the tiered cache at full width: the sim's hot tier (1,048,576 rows, 537 MB
+# of table + acc, 11.8% of the rows) holds a horizon of three batches (one
+# names ~131,000 rows); the threaded runner's, a PS each
+CACHE_HOT_ROWS, CACHE_LOOKAHEAD, CACHE_ITERS, CACHE_PROFILED = 1 << 20, 2, 6, 3
+THREADED_HOT_ROWS, THREADED_CACHE_ITERS, ONE_TRAINER_ITERS = 1 << 18, 16, 8
+CKPT_NEXT_ITERS = 2  # iterations run from the saved and the restored state
 
 # torch.profiler traces: the marker kernel (torch.cuda._sleep's) that opens
 # and closes the recorded run, its length, the card's clock for the pad
@@ -1229,6 +1250,267 @@ def k9_build_report(backend):
         assert all(counts[op] > 0 for op in K9_SASS_OPS), f"bf16 K9 d={d} SASS: {counts}"
 
 
+def window_profile(torch, body, first, last):
+    """Device idle share of one ``body()`` in the window from the first launch
+    of kernel ``first`` to the end of the last of ``last`` (a trace that lost
+    events is made again): busy is the union of device intervals in it. Also
+    the whole traced call's wall and device ms and its idle share (as
+    ``profile_window`` takes it), and the top device entries (kernels and
+    copies) of the window. None where every trace lost events."""
+    out, wall_ms, evs, _ = traced(torch, body, warm=False)
+    if evs is None:
+        return out, {"window_ms": None, "device_busy_ms": None, "idle_share": None,
+                     "wall_ms": wall_ms}
+    start = min(ev.time_range.start for ev in evs if first in ev.name)
+    end = max(ev.time_range.end for ev in evs if last in ev.name)
+    spans = [(max(ev.time_range.start, start), min(ev.time_range.end, end)) for ev in evs
+             if ev.time_range.end > start and ev.time_range.start < end]
+    busy_ms = busy_union_ms(spans)
+    window_ms = (end - start) / 1e3
+    by_name = {}
+    for ev in evs:
+        if ev.time_range.end > start and ev.time_range.start < end:
+            tot, cnt = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3, cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    whole_ms = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
+    return out, {"window_ms": window_ms, "device_busy_ms": busy_ms,
+                 "idle_share": 1 - busy_ms / window_ms, "wall_ms": wall_ms,
+                 "device_ms_whole_call": whole_ms, "idle_share_whole_call": 1 - whole_ms / wall_ms,
+                 "top_device": [[n[:80], t, c] for n, (t, c) in top]}
+
+
+def cache_phase(torch, cfg, all_ops, path_counts):
+    """``cache_path``: the full-width sim cached and uncached from one seed,
+    bitwise equal; K2 on hot slots at the sim shape; a profiled cached
+    window. Returns the uncached sim and its final state (the checkpoint
+    phase's), and the K1/K2 launches of the cached run."""
+    import numpy as np
+
+    from repro_torch import optim
+    from repro_torch import tree as T
+    from repro_torch.core.runners import HogwildSim, SimState
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import ctr
+    from repro_torch.embeddings.cache import CacheConfig
+    from repro_torch.kernels.sparse_adagrad.ops import sparse_adagrad_op
+
+    def make(cache):
+        return HogwildSim(cfg, SyncConfig(), n_trainers=R, n_threads=M, batch_size=B,
+                          optimizer=optim.adagrad(0.02), seed=11, cache=cache, device="cuda")
+
+    cache = CacheConfig(hot_rows=CACHE_HOT_ROWS, lookahead=CACHE_LOOKAHEAD)
+    sims = {"uncached": make(None), "cached": make(cache)}
+    st = sims["uncached"].init_state()
+    states = {"uncached": st,
+              "cached": SimState(st.w_stack.clone(), T.map(torch.clone, st.opt_stack),
+                                 T.map(torch.clone, st.emb_state), st.algo_state.clone(), 0)}
+    runs = {}
+    for name, sim in sims.items():
+        stamps = []
+        torch.cuda.synchronize()
+        reset_counts(all_ops.values())
+        t0 = time.perf_counter()
+        out = sim.run(CACHE_ITERS, state=states[name],
+                      on_iter=lambda t, loss: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = path_counts[f"sim_{name}"] = {k: op.launches for k, op in all_ops.items()}
+        assert counts["embedding_bag"] == counts["sparse_adagrad"] == CACHE_ITERS, (name, counts)
+        runs[name] = {"out": out, "wall_s": wall, "counts": counts,
+                      "ms_per_iter": (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3}
+    u, c = runs["uncached"]["out"], runs["cached"]["out"]
+    assert all(math.isfinite(x) for x in u["train_loss"]), u["train_loss"]
+    assert u["train_loss"] == c["train_loss"], (u["train_loss"], c["train_loss"])
+    for k in ("table", "acc"):
+        assert c["state"].emb_state[k].is_cuda
+        assert torch.equal(u["state"].emb_state[k], c["state"].emb_state[k]), k
+    assert torch.equal(u["state"].w_stack, c["state"].w_stack)
+    cs = c["cache_stats"]
+    assert cs["prefetch_rows"] > 0 and cs["evict_rows"] > 0, cs
+    assert cs["lookups"] == CACHE_ITERS and cs["dropped_updates"] == 0, cs
+    hot_mb = CACHE_HOT_ROWS * cfg.embedding_dim * 4 * 2 / 1e6
+    emit({"phase": "cache_path", "iters": CACHE_ITERS, "hot_rows": CACHE_HOT_ROWS,
+          "hot_MB": hot_mb, "hot_share_of_rows": CACHE_HOT_ROWS / cfg.n_embedding_rows,
+          "lookahead": CACHE_LOOKAHEAD, "bitwise_losses": True, "bitwise_tables": True,
+          "ms_per_iter_uncached": runs["uncached"]["ms_per_iter"],
+          "ms_per_iter_cached": runs["cached"]["ms_per_iter"],
+          "run_s_uncached": runs["uncached"]["wall_s"], "run_s_cached": runs["cached"]["wall_s"],
+          "hit_rate": cs["hit_rows"] / max(cs["hit_rows"] + cs["miss_rows"], 1),
+          "stall_lookups": cs["stall_lookups"], "prefetch_rows": cs["prefetch_rows"],
+          "evict_rows": cs["evict_rows"], "MB_migrated": (cs["bytes_h2d"] + cs["bytes_d2h"]) / 1e6,
+          "MB_h2d": cs["bytes_h2d"] / 1e6, "MB_d2h": cs["bytes_d2h"] / 1e6, "cache_stats": cs,
+          "launches_cached": {k: runs["cached"]["counts"][k]
+                              for k in ("embedding_bag", "sparse_adagrad")},
+          "loss_last": c["train_loss"][-1]})
+
+    # K2 on hot slots at the sim shape (iteration 0's ids, a random slot
+    # permutation): bitwise the full table's with the rows as the sort key,
+    # and not without it (the runs then meet the tiles elsewhere)
+    spec = sims["cached"].spec
+    rows = (ctr.sparse_ids(cfg, 0, 0, R * M * B) + spec.offsets[None, :, None]).reshape(
+        -1, cfg.multi_hot)
+    uniq = np.unique(rows)
+    slot_of = np.full(spec.total_rows, -1, np.int64)
+    slot_of[uniq] = np.random.default_rng(0).permutation(len(uniq))
+    hot_of = torch.from_numpy(uniq[np.argsort(slot_of[uniq])]).cuda()
+    full = {k: v.clone() for k, v in u["state"].emb_state.items()}
+    g = torch.randn((rows.shape[0], cfg.embedding_dim),
+                    generator=torch.Generator().manual_seed(5)).cuda()
+    rows_t, slots_t = torch.from_numpy(rows).cuda(), torch.from_numpy(slot_of[rows]).cuda()
+    ht, ha = full["table"][hot_of], full["acc"][hot_of]
+    nt, na = ht.clone(), ha.clone()
+    sparse_adagrad_op(full["table"], full["acc"], rows_t, g, lr=0.05)
+    sparse_adagrad_op(ht, ha, slots_t, g, lr=0.05, order_ids=rows_t)
+    sparse_adagrad_op(nt, na, slots_t, g, lr=0.05)
+    by_row = torch.equal(ht, full["table"][hot_of]) and torch.equal(ha, full["acc"][hot_of])
+    by_slot = torch.equal(nt, full["table"][hot_of]) and torch.equal(na, full["acc"][hot_of])
+    assert by_row and not by_slot, (by_row, by_slot)
+    emit({"phase": "kernel_check", "name": "sparse_adagrad_hot_slots", "occurrences": rows.size,
+          "distinct_rows": len(uniq), "bitwise_sorted_by_row": by_row,
+          "bitwise_sorted_by_slot": by_slot})
+    del full, ht, ha, nt, na, g, rows_t, slots_t, hot_of
+
+    # where the cached iteration's time goes: K1's first launch to K2's last
+    state = c["state"]
+    _, prof = window_profile(torch, lambda: sims["cached"].run(CACHE_PROFILED, state=state),
+                             DEVICE_NAMES["embedding_bag"], DEVICE_NAMES["sparse_adagrad"][-1])
+    emit({"phase": "cache_profile", "iters": CACHE_PROFILED, **prof})
+    # the host's side of it: cProfile over as many cached iterations (the
+    # store's build and merge included), by function
+    host = cProfile.Profile()
+    host.enable()
+    state = sims["cached"].run(CACHE_PROFILED, state=state)["state"]
+    torch.cuda.synchronize()
+    host.disable()
+    stats = pstats.Stats(host).stats  # {(file, line, name): (cc, nc, tottime, cumtime, callers)}
+    by_fn = sorted(((v[2], v[3], v[1], f"{os.path.basename(k[0])}:{k[2]}")
+                    for k, v in stats.items()), reverse=True)
+    mine = {f"cache.py:{name}": next((round(cum * 1e3, 3) for _, cum, _, fn in by_fn
+                                      if fn == f"cache.py:{name}"), None)
+            for name in ("prefetch", "lookup", "update", "merged", "__init__")}
+    emit({"phase": "cache_host_profile", "iters": CACHE_PROFILED,
+          "cumulative_ms": mine,
+          "top_self_ms": [[fn, round(tot * 1e3, 3), n] for tot, _, n, fn in by_fn[:10]]})
+    launches = runs["cached"]["counts"]
+    del sims["cached"], states, runs, c, state
+    return sims["uncached"], u["state"], launches
+
+
+def threaded_cache_phase(torch, cfg, all_ops, path_counts):
+    """``threaded_cache_path``: four cached trainer threads at full width, and
+    one fixed_rate trainer cached against uncached, bitwise."""
+    from repro_torch import optim
+    from repro_torch import tree as T
+    from repro_torch.core.runners import ThreadedShadowRunner
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.embeddings.cache import CacheConfig
+
+    cache = CacheConfig(hot_rows=THREADED_HOT_ROWS, lookahead=CACHE_LOOKAHEAD)
+    rc = ThreadedShadowRunner(cfg, SyncConfig(), n_trainers=R, batch_size=B,
+                              optimizer=optim.adagrad(0.02), n_emb_shards=N_SHARDS, cache=cache,
+                              device="cuda")
+    rc.warmup()
+    reset_counts(all_ops.values())
+    out = rc.run(THREADED_CACHE_ITERS)
+    counts = path_counts["threaded_cached"] = {k: op.launches for k, op in all_ops.items()}
+    n_calls = R * N_SHARDS * THREADED_CACHE_ITERS
+    assert all(math.isfinite(x) for x in out["train_loss"]), out["train_loss"]
+    assert out["iter_count"] == [THREADED_CACHE_ITERS] * R, out["iter_count"]
+    assert counts["embedding_bag"] == counts["sparse_adagrad"] == n_calls, counts
+    cs = out["cache_stats"]
+    assert cs["lookups"] == n_calls and cs["prefetch_rows"] > 0, cs
+    assert out["dropped_updates"] == [0] * N_SHARDS, out["dropped_updates"]
+    packed = out["emb_state"]
+    assert packed["table"].shape == (cfg.n_embedding_rows, cfg.embedding_dim)
+    assert bool(torch.isfinite(packed["table"]).all())
+    emit({"phase": "threaded_cache_path", "trainers": R, "iters_per_trainer": THREADED_CACHE_ITERS,
+          "hot_rows_per_ps": THREADED_HOT_ROWS, "shard_rows": list(rc.plan.shard_rows),
+          "eps": out["eps"], "wall_s": out["wall_s"], "sync_rounds": out["sync_rounds"],
+          "sync_count": out["sync_count"], "train_loss": out["train_loss"],
+          "hit_rate": cs["hit_rows"] / max(cs["hit_rows"] + cs["miss_rows"], 1),
+          "MB_migrated": (cs["bytes_h2d"] + cs["bytes_d2h"]) / 1e6, "cache_stats": cs,
+          "launches": {k: counts[k] for k in ("embedding_bag", "sparse_adagrad")}})
+    del rc, out, packed
+    release(torch)
+
+    one = {}
+    for name, c in (("uncached", None), ("cached", cache)):
+        r1 = ThreadedShadowRunner(cfg, SyncConfig(mode="fixed_rate", gap=4), n_trainers=1,
+                                  batch_size=B, optimizer=optim.adagrad(0.02),
+                                  n_emb_shards=N_SHARDS, supervise=False, cache=c, device="cuda")
+        o = r1.run(ONE_TRAINER_ITERS)
+        one[name] = (o["train_loss"], o["emb_state"], o["w"][0], o["cache_stats"])
+        del r1, o
+    (lu, eu, wu, _), (lc, ec, wc, cs1) = one["uncached"], one["cached"]
+    assert lu == lc, (lu, lc)
+    for k in ("table", "acc"):
+        assert torch.equal(eu[k], ec[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(T.leaves(wu), T.leaves(wc)))
+    emit({"phase": "threaded_cache_path", "trainers": 1, "mode": "fixed_rate",
+          "iters": ONE_TRAINER_ITERS, "bitwise_to_packed": True, "bitwise_replica": True,
+          "cache_stats": cs1})
+    del one, eu, ec, wu, wc
+    release(torch)
+
+
+def checkpoint_phase(torch, cfg, sim, st):
+    """``checkpoint``: the full-width sim state saved and restored bitwise,
+    two more iterations from each agreeing; then restored at R+1, the joined
+    slot EASGD's PS plane with a fresh optimizer state. The temporary
+    directory is removed at the end."""
+    from repro_torch import optim
+    from repro_torch import tree as T
+    from repro_torch.core import sync as S
+    from repro_torch.core.runners import HogwildSim
+    from repro_torch.core.sync import SyncConfig
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.save_state(d, st)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(root, f))
+                     for root, _, files in os.walk(d) for f in files)
+        t0 = time.perf_counter()
+        st2 = sim.load_state(d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        saved, loaded = T.leaves_with_path(sim._state_tree(st)), \
+            T.leaves_with_path(sim._state_tree(st2))
+        assert [k for k, _ in saved] == [k for k, _ in loaded]
+        for (k, a), (_, b) in zip(saved, loaded):
+            assert b.is_cuda and a.dtype == b.dtype and torch.equal(a, b), k
+        assert st2.step == st.step
+        w_saved = st.w_stack.clone()
+        la = sim.run(CKPT_NEXT_ITERS, state=st)["train_loss"]
+        lb = sim.run(CKPT_NEXT_ITERS, state=st2)["train_loss"]
+        assert la == lb and all(math.isfinite(x) for x in la), (la, lb)
+        del st2
+        grown = HogwildSim(cfg, SyncConfig(), n_trainers=R + 1, n_threads=M, batch_size=B,
+                           optimizer=optim.adagrad(0.02), seed=11, device="cuda")
+        t0 = time.perf_counter()
+        st5 = grown.load_state(d)
+        torch.cuda.synchronize()
+        elastic_s = time.perf_counter() - t0
+        assert torch.equal(st5.w_stack[R], st5.algo_state), "the joined slot is not the PS plane"
+        assert torch.equal(st5.w_stack[:R], w_saved)
+        assert all(not bool(x.any()) for x in T.leaves(S.tree_slice(st5.opt_stack, R)))
+        l5 = grown.run(1, state=st5)["train_loss"]
+        assert all(math.isfinite(x) for x in l5), l5
+        emit({"phase": "checkpoint", "leaves": len(saved), "GB": nbytes / 1e9, "save_s": save_s,
+              "restore_s": load_s, "save_GB_per_s": nbytes / 1e9 / save_s,
+              "restore_GB_per_s": nbytes / 1e9 / load_s, "bitwise_leaves": True,
+              "next_iters_bitwise": True, "next_losses": la, "elastic_R": [R, R + 1],
+              "elastic_restore_s": elastic_s, "joined_slot_is_ps_plane": True,
+              "joined_opt_fresh": True})
+        del st5, grown, w_saved
+    finally:
+        shutil.rmtree(d)
+    assert not os.path.exists(d)
+
+
 def main() -> int:
     import torch
 
@@ -1611,6 +1893,19 @@ def main() -> int:
                                                                          tiny["cpu"][0])),
               "max_plane_diff_cuda_vs_cpu": (tiny["cuda"][2] - tiny["cpu"][2]).abs().max().item(),
               "sync_count": tiny["cuda"][1]})
+
+    # 6b · the tiered cache and checkpoints at full width
+    torch.cuda.reset_peak_memory_stats()
+    sim_u, st_u, cached_launches = cache_phase(torch, cfg, all_ops, path_counts)
+    release(torch)
+    for k in ("embedding_bag", "sparse_adagrad"):
+        rows[k]["launches_cache_path"] = cached_launches[k]
+    threaded_cache_phase(torch, cfg, all_ops, path_counts)
+    checkpoint_phase(torch, cfg, sim_u, st_u)
+    emit({"phase": "cache_checkpoint_memory",
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    del sim_u, st_u
+    release(torch)
 
     # 7 · the serving path, with the DLRM state released first
     alloc, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()

@@ -32,10 +32,14 @@ threads: trainer threads race on plan-sharded embedding PSs while a
 background shadow thread syncs the dense replicas, each thread on its own
 CUDA stream.
 
-Not yet ported: in ``HogwildSim`` the tiered cache, step pipelining, mode
-switching and checkpoints; in ``ThreadedShadowRunner`` the cache, step
-pipelining, the straggler policy and the mode controller. Passing their
-options raises.
+The tiered embedding cache (``cache=``, ``embeddings/cache.py``) runs in
+both: the sim puts its packed table behind one ``CachedStore`` for a run,
+the threaded runner one per PS. ``HogwildSim.save_state``/``load_state``
+write and read the JAX package's checkpoint format (``checkpoint/``).
+
+Not yet ported: in ``HogwildSim`` step pipelining and mode switching; in
+``ThreadedShadowRunner`` step pipelining, the straggler policy and the mode
+controller. Passing their options raises.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import tree as T
 from repro_torch.core import algorithms, streams
 from repro_torch.core import sync as S
@@ -58,6 +63,7 @@ from repro_torch.core.supervision import Supervisor, SupervisorConfig
 from repro_torch.data import ctr
 from repro_torch.embeddings import shards as emb_shards
 from repro_torch.embeddings import table as emb
+from repro_torch.embeddings.cache import CacheConfig, CachedStore
 from repro_torch.kernels import backend
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import dlrm
@@ -105,11 +111,15 @@ class HogwildSim:
         mode_schedule=None,
         device: Optional[str] = None,
     ):
-        unported = dict(cache=cache, pipeline=pipeline, mode_schedule=mode_schedule)
+        unported = dict(pipeline=pipeline, mode_schedule=mode_schedule)
         for name, value in unported.items():
             if value is not None:
                 raise NotImplementedError(f"HogwildSim({name}=...) is not yet ported")
         self.device = resolve_device(device)
+        # Tiered embedding cache: the packed table moves behind one
+        # CachedStore for a run; merged() gives the canonical tables back at
+        # its end, so save, evaluation and resume never see the cache.
+        self.cache: Optional[CacheConfig] = cache.validate() if cache is not None else None
         self.cfg = cfg
         self.sync_cfg = sync_cfg.validate()
         self.engine = sync_cfg.engine
@@ -165,26 +175,37 @@ class HogwildSim:
         g_pooled = torch.where(live.reshape((R, 1, 1, 1, 1)), g_pooled, 0.0)
         return w, opt_state, loss.mean(1), g_pooled
 
-    def _train_iter(self, st: SimState, batch, active: Optional[np.ndarray] = None):
+    def _train_iter(self, st: SimState, batch, active: Optional[np.ndarray] = None,
+                    store: Optional[CachedStore] = None, gids: Optional[np.ndarray] = None):
+        """One iteration. With ``store`` (a cached run) the lookup and the
+        update go through the hot tier over ``gids``, the batch's packed
+        global ids on the host: the same two kernel launches, bitwise."""
         cfg, spec = self.cfg, self.spec
         F, m, d = cfg.n_sparse_features, cfg.multi_hot, cfg.embedding_dim
         idx = batch["sparse"].reshape(-1, F, m)
-        pooled = emb.lookup(st.emb_state, spec, idx).reshape(self.R, self.M, self.B, F, d)
+        pooled = emb.lookup(st.emb_state, spec, idx) if store is None else store.lookup(gids)
+        pooled = pooled.reshape(self.R, self.M, self.B, F, d)
         w = self.flat.unpack_stack(st.w_stack) if self.engine == "flat" else st.w_stack
         w, st.opt_stack, loss, g_pooled = self._dense_core(w, st.opt_stack, pooled, batch,
                                                            active)
         st.w_stack = self.flat.pack_stack(w) if self.engine == "flat" else w
         # Hogwild on the single embedding copy: one fused, in-place
         # scatter-Adagrad launch with every trainer's and thread's gradient.
-        emb.sparse_adagrad_update_fused(st.emb_state, spec, idx, g_pooled.reshape(-1, F, d),
-                                        self.emb_lr)
+        if store is None:
+            emb.sparse_adagrad_update_fused(st.emb_state, spec, idx,
+                                            g_pooled.reshape(-1, F, d), self.emb_lr)
+        else:  # the same (R*M*B*F, m) / (R*M*B*F, d) flattening
+            store.update(gids.reshape(-1, m), g_pooled.reshape(-1, d), self.emb_lr)
         return loss
 
     # -- state --------------------------------------------------------------
     def init_state(self) -> SimState:
         gen = torch.Generator().manual_seed(self.seed)
         w0 = dlrm.init_dense(self.cfg, gen, device=self.device)
-        emb_state = emb.init_tables(self.spec, gen, device=self.device)
+        return self._state_from(w0, emb.init_tables(self.spec, gen, device=self.device))
+
+    def _state_from(self, w0: Tree, emb_state: Dict[str, torch.Tensor]) -> SimState:
+        """Step-0 state of every replica at ``w0``, with ``emb_state``."""
         opt0 = self.opt.init(w0)
         opt_stack = T.map(lambda x: _stack(x, self.R), opt0)
         if self.engine == "flat":
@@ -277,6 +298,24 @@ class HogwildSim:
         st = self.init_state() if state is None else state
         sc = self.sync_cfg
         elastic = self._elastic
+        store: Optional[CachedStore] = None
+        la = 0
+        gid_memo: Dict[int, np.ndarray] = {}
+        if self.cache is not None:
+            store = CachedStore(st.emb_state, self.cache)
+            st.emb_state = None
+            la = self.cache.effective_lookahead()
+        offs = self.spec.offsets[None, :, None]
+
+        def _gids(it: int) -> np.ndarray:
+            # the peek: batch ``it``'s packed global ids, drawn again on the
+            # host (the stream is a pure function of the iteration)
+            if it not in gid_memo:
+                F, m = self.cfg.n_sparse_features, self.cfg.multi_hot
+                ids = ctr.sparse_ids(self.cfg, self.seed, it, self.B * self.R * self.M)
+                gid_memo[it] = ids.reshape(-1, F, m) + offs
+            return gid_memo[it]
+
         losses: List[float] = []
         replica_losses: List[np.ndarray] = []
         sync_count = 0
@@ -289,7 +328,15 @@ class HogwildSim:
                 for kind, slot in self.schedule.events_at(t):
                     st = self._apply_membership_event(st, kind, slot)
             active = self.membership.active_mask() if elastic else None
-            loss = self._train_iter(st, self.make_batch(t), active)
+            gids = None
+            if store is not None:
+                # one prefetch round covering [t, t + K) at the boundary
+                if la:
+                    store.prefetch([_gids(t + j) for j in range(la)])
+                gids = _gids(t)
+                for k in [k for k in gid_memo if k <= t]:
+                    del gid_memo[k]
+            loss = self._train_iter(st, self.make_batch(t), active, store, gids)
             # float()/numpy() synchronise, as float() does in the reference
             if elastic:
                 lv = loss.detach().cpu().numpy()
@@ -335,6 +382,8 @@ class HogwildSim:
                 on_iter(t, losses[-1])
             if log_every and (t + 1) % log_every == 0:
                 print(f"iter {t+1}: loss {np.mean(losses[-log_every:]):.5f}")
+        if store is not None:
+            st.emb_state = store.merged()  # the canonical tables, as uncached
         # replica-iterations actually trained (dead slots do not count)
         replica_iters = examples // (self.M * self.B)
         out = {
@@ -344,6 +393,8 @@ class HogwildSim:
             "avg_sync_gap": replica_iters / max(sync_count, 1),
             "examples": examples,
         }
+        if store is not None:
+            out["cache_stats"] = store.stats.as_dict()
         if elastic:
             out["replica_losses"] = np.stack(replica_losses)
             out["membership_events"] = list(self.membership.events)
@@ -354,6 +405,74 @@ class HogwildSim:
         if self.engine == "flat":
             return self.flat.unpack_replica(st.w_stack, i)
         return S.tree_slice(st.w_stack, i)
+
+    def dense_stack(self, st: SimState) -> Tree:
+        """The dense replica stack as a tree with leading R, whatever the
+        engine: the on-disk form."""
+        return self.flat.unpack_stack(st.w_stack) if self.engine == "flat" else st.w_stack
+
+    # -- checkpoints -----------------------------------------------------------
+    def _state_tree(self, st: SimState) -> Dict[str, Any]:
+        """The on-disk tree, the JAX package's: dense replicas as the named
+        stack, optimizer, embedding and algorithm state."""
+        return {"w": self.dense_stack(st), "opt": st.opt_stack, "emb": st.emb_state,
+                "algo": st.algo_state}
+
+    def save_state(self, path: str, st: SimState,
+                   metadata: Optional[Dict[str, Any]] = None) -> None:
+        meta = {"step": st.step, "algo": self.sync_cfg.algo, "engine": self.engine,
+                "R": self.R, "active_mask": [bool(b) for b in self.membership.active_mask()]}
+        meta.update(metadata or {})
+        ckpt.save(path, self._state_tree(st), metadata=meta)
+
+    def load_state(self, path: str) -> SimState:
+        """Elastic restore: the checkpoint's replica count may differ from
+        this sim's capacity. Shrinking truncates the replica axis; every slot
+        live now that was not live at save (grown, or dead when saved) is
+        bootstrapped through the algorithm's join hook (the live mean, or
+        EASGD's PS plane) with a fresh optimizer state."""
+        meta0 = ckpt.read_metadata(path)
+        for field, want in (("engine", self.engine), ("algo", self.sync_cfg.algo)):
+            if field in meta0 and meta0[field] != want:
+                raise ValueError(
+                    f"checkpoint at {path!r} was saved with {field}={meta0[field]!r} but this "
+                    f"sim runs {field}={want!r}; construct the sim to match (the algo_state "
+                    f"layout is {field}-specific)")
+        w0 = dlrm.init_dense(self.cfg, torch.Generator().manual_seed(self.seed),
+                             device=self.device)
+        # the tables' template has their shape, not their memory
+        rows, d = self.spec.total_rows, self.spec.dim
+        like_emb = {k: torch.empty((1, d), device=self.device).expand(rows, d)
+                    for k in ("acc", "table")}
+        like = self._state_tree(self._state_from(w0, like_emb))
+
+        # only the replica-stacked trees may resize; a mismatch anywhere else
+        # (embedding rows of another config) raises
+        def replica_stacked(k: str) -> bool:
+            return k.split("/")[0] in ("w", "opt")
+
+        tree, meta, _ = ckpt.restore_elastic(path, like, may_resize=replica_stacked)
+        w_stack = self.flat.pack_stack(tree["w"]) if self.engine == "flat" else tree["w"]
+        st = SimState(w_stack, tree["opt"], tree["emb"], tree["algo"], int(meta.get("step", 0)))
+        # donors: the restored cohort, the slots live at save (and kept)
+        saved_R = int(meta.get("R", self.R))
+        donors = np.zeros((self.R,), bool)
+        k = min(saved_R, self.R)
+        saved_active = meta.get("active_mask")
+        donors[:k] = True if saved_active is None else np.asarray(saved_active, bool)[:k]
+        sc, fs = self.sync_cfg, self.flat
+        for slot in np.flatnonzero(self.membership.active_mask() & ~donors):
+            slot = int(slot)
+            if donors.any():
+                if self.engine == "flat":
+                    st.w_stack, st.algo_state = self.algo.on_join_flat(
+                        st.w_stack, slot, st.algo_state, donors, sc, fs)
+                else:
+                    st.w_stack, st.algo_state = self.algo.on_join(
+                        st.w_stack, slot, st.algo_state, donors, sc)
+            st.opt_stack = S.tree_set(st.opt_stack, slot,
+                                      self.opt.init(self.replica_params(st, slot)))
+        return st
 
     @torch.no_grad()
     def evaluate(self, st: SimState, n_batches: int = 20, batch_size: int = 4096,
@@ -423,10 +542,17 @@ class ThreadedShadowRunner:
       shard tensors are ``record_stream``-ed for every thread's stream once,
       at the start of ``run()``.
 
-    Not yet ported: ``cache``, ``pipeline``, ``straggler_policy`` and
+    The tiered cache (``cache=``): each PS fronts its table with a
+    ``CachedStore`` (``EmbeddingShards(cache=)``); trainers look up and
+    update through the hot tiers, and the shadow thread (in fixed_rate the
+    supervisor's tick) runs the lookahead prefetch between rounds, peeking
+    each live trainer's next batches. ``cache_stats`` sums the stores'
+    counters.
+
+    Not yet ported: ``pipeline``, ``straggler_policy`` and
     ``mode_controller`` raise. The result dict keeps their keys at their
-    defaults (``cache_stats={}``, ``pipeline_stats={}``, ``mode`` the
-    configured mode, no transitions)."""
+    defaults (``pipeline_stats={}``, ``mode`` the configured mode, no
+    transitions)."""
 
     def __init__(
         self,
@@ -453,12 +579,13 @@ class ThreadedShadowRunner:
         mode_controller=None,
         device: Optional[str] = None,
     ):
-        unported = dict(cache=cache, pipeline=pipeline, straggler_policy=straggler_policy,
+        unported = dict(pipeline=pipeline, straggler_policy=straggler_policy,
                         mode_controller=mode_controller)
         for name, value in unported.items():
             if value is not None:
                 raise NotImplementedError(f"ThreadedShadowRunner({name}=...) is not yet ported")
         self.device = resolve_device(device)
+        self.cache: Optional[CacheConfig] = cache.validate() if cache is not None else None
         self.cfg, self.sync_cfg = cfg, sync_cfg.validate()
         self.engine = sync_cfg.engine
         self.algo = algorithms.get(sync_cfg.algo)
@@ -543,13 +670,20 @@ class ThreadedShadowRunner:
         d = self.spec.dim
         embs = emb_shards.EmbeddingShards(self.plan, [
             {k: torch.zeros((rows, d), device=self.device) for k in ("table", "acc")}
-            for rows in self.plan.shard_rows])
+            for rows in self.plan.shard_rows], cache=self.cache)
         for it in range(iters):
             batch = ctr.gen_batch(self.cfg, self.teacher, self.seed, it, self.B)
-            w, opt_state, _, g_pooled = self._train_dense(w, opt_state,
-                                                          embs.lookup(batch["sparse"]), batch)
+            if self.cache is not None:
+                sparse_np = batch["sparse"].cpu().numpy()
+                pooled = embs.cached_lookup(sparse_np)
+            else:
+                pooled = embs.lookup(batch["sparse"])
+            w, opt_state, _, g_pooled = self._train_dense(w, opt_state, pooled, batch)
             for s in range(self.n_emb_shards):
-                embs.try_update(s, self._emb_updates[s], batch["sparse"], g_pooled)
+                if self.cache is not None:
+                    embs.cached_update(s, sparse_np, g_pooled, self.emb_lr)
+                else:
+                    embs.try_update(s, self._emb_updates[s], batch["sparse"], g_pooled)
         if self.engine == "flat":
             algo_state = self.algo.init_state_flat(w, self.sync_cfg, self.flat)
         else:
@@ -615,7 +749,7 @@ class ThreadedShadowRunner:
         self._w0 = w0  # written once pre-spawn, read-only after
         # Per-PS Hogwild states, seed-identical to the packed single table.
         self.emb = emb_shards.EmbeddingShards.init(self.plan, gen, retry=self.shard_retry,
-                                                   device=dev)
+                                                   cache=self.cache, device=dev)
         if self.engine == "flat":
             plane0 = self.flat.pack(w0)
             w_init = [plane0.clone() for _ in range(self.R)]
@@ -691,6 +825,42 @@ class ThreadedShadowRunner:
             # `sup` is bound later in run(); closures resolve it at call time
             if sup is not None:
                 sup.beat(name)
+
+        # Lookahead prefetch: each trainer's stream is a pure function of
+        # (seed + slot, iteration), so the next K batches of every live
+        # trainer are peeked (drawn again on the host, memoized across
+        # rounds) and their per-shard rows promoted between rounds. A trainer
+        # that outruns the horizon pays a counted synchronous promotion.
+        peek_memo: Dict[Tuple[int, int], np.ndarray] = {}  # guarded-by: prefetch_gate
+        prefetch_gate = threading.Lock()
+
+        def _prefetch_step() -> None:
+            if self.cache is None or self.cache.lookahead == 0:
+                return
+            la = self.cache.effective_lookahead()
+            if not prefetch_gate.acquire(blocking=False):
+                return  # another incarnation (a restart race) is mid-round
+            try:
+                horizons: List[List[np.ndarray]] = [[] for _ in range(self.n_emb_shards)]
+                for i in range(self.R):
+                    if not self._alive[i]:
+                        continue
+                    base = self.iter_count[i]
+                    for it in range(base, min(base + la, iters_per_trainer)):
+                        idx = peek_memo.get((i, it))
+                        if idx is None:
+                            idx = peek_memo[(i, it)] = ctr.sparse_ids(
+                                self.cfg, self.seed + i, it, self.B)
+                        for s in range(self.n_emb_shards):
+                            horizons[s].append(emb_shards._route_np(self.plan, s, idx))
+                for k in [k for k in peek_memo if k[1] < self.iter_count[k[0]]]:
+                    del peek_memo[k]  # trained past it
+                for s in range(self.n_emb_shards):
+                    store = self.emb.stores[s]
+                    if store is not None and self.emb.health[s]:
+                        store.prefetch(horizons[s])
+            finally:
+                prefetch_gate.release()
 
         def _round_over_active() -> int:
             # The round runs over the LIVE planes only. It is kernel dispatch,
@@ -835,8 +1005,14 @@ class ThreadedShadowRunner:
                 if sleep_s and (sleep_until is None or it < sleep_until):
                     time.sleep(sleep_s)  # injected degradation
                 batch = ctr.gen_batch(self.cfg, self.teacher, self.seed + i, it, self.B)
-                # Lock-free read of the shared per-PS tables (Hogwild).
-                pooled = self.emb.lookup(batch["sparse"])
+                if self.cache is not None:
+                    # through the per-PS hot tiers (a row that beat the
+                    # prefetch horizon is promoted synchronously, counted)
+                    sparse_np = batch["sparse"].cpu().numpy()
+                    pooled = self.emb.cached_lookup(sparse_np)
+                else:
+                    # Lock-free read of the shared per-PS tables (Hogwild).
+                    pooled = self.emb.lookup(batch["sparse"])
                 w, opt_state, loss, g_pooled = self._train_dense(
                     streams.consume(self.w[i]), self.opt_states[i], pooled, batch)
                 self.w[i] = streams.publish(w)
@@ -848,7 +1024,11 @@ class ThreadedShadowRunner:
                 is_member = self.membership.status(i) == "active"
                 if is_member:
                     for s in range(self.n_emb_shards):
-                        self.emb.try_update(s, self._emb_updates[s], batch["sparse"], g_pooled)
+                        if self.cache is not None:
+                            self.emb.cached_update(s, sparse_np, g_pooled, self.emb_lr)
+                        else:
+                            self.emb.try_update(s, self._emb_updates[s], batch["sparse"],
+                                                g_pooled)
                 lv = float(loss)  # waits for this trainer's stream only
                 losses[i].append(lv)
                 self.iter_count[i] = it + 1
@@ -894,7 +1074,9 @@ class ThreadedShadowRunner:
                 else:
                     time.sleep(0.001)
                 self._shadow_rounds = r + 1
-                # PS snapshots ride the shadow cadence (copies on this stream)
+                # the cache's lookahead prefetch rides between the rounds, and
+                # PS snapshots the shadow cadence (copies on this stream)
+                _prefetch_step()
                 if self._shadow_rounds % self.ps_snapshot_every == 0:
                     self.emb.snapshot_all()
                 if self.sync_sleep_s:
@@ -939,8 +1121,10 @@ class ThreadedShadowRunner:
         def _tick_body() -> None:
             # PS chaos injection + timed recovery ride the watch loop
             if fr_static:
-                # no shadow thread: PS snapshots take the watch-loop cadence
+                # no shadow thread: the prefetch and the PS snapshots take the
+                # watch-loop cadence
                 self._tick_count += 1
+                _prefetch_step()
                 if self._tick_count % 10 == 0:
                     self.emb.snapshot_all()
             for s, at in self.fault.ps_fail_at.items():
@@ -1053,7 +1237,7 @@ class ThreadedShadowRunner:
             "shard_events": list(self.emb.events),
             "dropped_updates": list(self.emb.dropped_updates),
             "stale_lookups": list(self.emb.stale_lookups),
-            "cache_stats": {},
+            "cache_stats": self.emb.cache_stats() if self.cache is not None else {},
             "pipeline_stats": {},
             "mode": self._mode,
             "mode_transitions": [],

@@ -46,10 +46,9 @@ def _offsets(cfg) -> torch.Tensor:
     return torch.as_tensor(np.concatenate([[0], np.cumsum(cfg.table_sizes)[:-1]]), dtype=torch.int32)
 
 
-def gen_batch(cfg, teacher: CTRTeacher, seed: int, batch_idx: int,
-              batch_size: int) -> Dict[str, torch.Tensor]:
-    """Pure function of (seed, batch_idx): the one-pass stream, on the
-    teacher's device. sparse: (B, F, m) int32 per-feature row ids."""
+def _draws(cfg, seed: int, batch_idx: int, batch_size: int):
+    """Batch ``batch_idx``'s random draws on the CPU, in the order the stream
+    makes them: (dense, idx, u_label)."""
     gen = _generator(seed, batch_idx)
     F, m = cfg.n_sparse_features, cfg.multi_hot
     dense = torch.randn((batch_size, cfg.n_dense_features), generator=gen)
@@ -58,6 +57,21 @@ def gen_batch(cfg, teacher: CTRTeacher, seed: int, batch_idx: int,
     sizes = torch.as_tensor(cfg.table_sizes, dtype=torch.int32)[None, :, None]
     # Zipf-ish skew: square a uniform to concentrate on low ids (hot rows).
     idx = torch.minimum((u * u * sizes).to(torch.int32), sizes - 1)
+    return dense, idx, u_label
+
+
+def sparse_ids(cfg, seed: int, batch_idx: int, batch_size: int) -> np.ndarray:
+    """Batch ``batch_idx``'s ``sparse`` ids alone, on the host, without the
+    teacher or the device: the peek of the cache's lookahead prefetch."""
+    return _draws(cfg, seed, batch_idx, batch_size)[1].numpy()
+
+
+def gen_batch(cfg, teacher: CTRTeacher, seed: int, batch_idx: int,
+              batch_size: int) -> Dict[str, torch.Tensor]:
+    """Pure function of (seed, batch_idx): the one-pass stream, on the
+    teacher's device. sparse: (B, F, m) int32 per-feature row ids."""
+    F, m = cfg.n_sparse_features, cfg.multi_hot
+    dense, idx, u_label = _draws(cfg, seed, batch_idx, batch_size)
 
     dev = teacher.true_rows.device
     dense, idx, u_label = dense.to(dev), idx.to(dev), u_label.to(dev)

@@ -1,5 +1,5 @@
 """Plan-sharded embedding engine: the paper's embedding parameter servers,
-the twin of ``repro/embeddings/shards.py`` (its uncached path).
+the twin of ``repro/embeddings/shards.py``.
 
 ``plan_shards`` runs the greedy LPT planner (``table.bin_pack`` over
 ``table.lookup_costs``) to assign whole categorical tables to ``n_shards``
@@ -34,6 +34,15 @@ where the reference swaps in new immutable arrays:
   readers recorded. ``recover_shard`` copies the snapshot INTO the live
   tensors and never aliases the two. A snapshot taken while trainers write
   is consistent per element, not per moment: the port's bounded staleness.
+
+Cached mode (``cache=``, ``embeddings/cache.py``): each healthy shard is
+fronted by a ``CachedStore`` that owns its live values, and the hot path
+is ``cached_lookup``/``cached_update`` (``lookup``/``try_update`` raise:
+mixing the two views would fork the shard). Above the hot path nothing
+changes: a snapshot is the store's ``merged()`` (new tensors, so no buffer
+is reused), a failed shard loses both tiers and serves its snapshot, and
+recovery builds a new store from the snapshot; ``to_packed`` goes through
+``merged()``, so checkpoints cannot tell the cache exists.
 """
 from __future__ import annotations
 
@@ -43,9 +52,11 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import streams
+from repro_torch.embeddings.cache import CacheConfig, CachedStore
 from repro_torch.embeddings.table import TableSpec, bin_pack, init_tables, lookup_costs
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
 from repro_torch.kernels.sparse_adagrad.ops import sparse_adagrad_op
@@ -132,6 +143,14 @@ def _route(plan: ShardPlan, s: int, idx: torch.Tensor) -> torch.Tensor:
     return idx.index_select(1, feats) + offs[None, :, None]
 
 
+def _route_np(plan: ShardPlan, s: int, idx: np.ndarray) -> np.ndarray:
+    """``_route`` on the host: the cache and its prefetcher index numpy
+    routing tables, so the ids stay off the device."""
+    feats = np.asarray(plan.bins[s])
+    offs = np.asarray([plan.feature_local_offset[f] for f in plan.bins[s]], np.int32)
+    return np.take(idx, feats, axis=1) + offs[None, :, None]
+
+
 def assemble(plan: ShardPlan, outs: List[torch.Tensor]) -> torch.Tensor:
     """Per-shard pooled planes (bins order) -> (B, F, dim) in feature order."""
     pooled = torch.cat(outs, dim=1)
@@ -202,24 +221,34 @@ class EmbeddingShards:
     the live tensors and the shard rejoins the plan. The constructor seeds
     the generation-0 snapshots, so recovery is always possible.
 
-    Thread model: trainers call ``lookup``/``try_update`` without a lock;
-    health, snapshot and incarnation transitions take ``_lock``, and device
-    work never runs under it."""
+    Thread model: trainers call ``lookup``/``try_update`` (cached:
+    ``cached_lookup``/``cached_update``) without a lock; health, snapshot
+    and incarnation transitions take ``_lock``, and device work never runs
+    under it."""
 
     def __init__(self, plan: ShardPlan, states: List[Params],
-                 retry: Optional[ShardRetryPolicy] = None, cache=None):
-        if cache is not None:
-            raise NotImplementedError("EmbeddingShards(cache=...) is not yet ported")
+                 retry: Optional[ShardRetryPolicy] = None,
+                 cache: Optional[CacheConfig] = None):
         self.plan = plan
         self.retry = (retry or ShardRetryPolicy()).validate()
+        self.cache = cache.validate() if cache is not None else None
         n = plan.n_shards
         self.device = states[0]["table"].device
-        self.states: List[Params] = list(states)
         self.health: List[bool] = [True] * n
-        # two snapshot buffers per shard; snapshots[s] publishes the complete
-        # one with its ready event, the other takes the next copy
-        self._buffers = [[{k: v.clone() for k, v in st.items()},
-                          {k: torch.empty_like(v) for k, v in st.items()}] for st in states]
+        self._streams: List = []  # every stream that reads or writes the shards (share_with)
+        if self.cache is None:
+            self.states: List[Optional[Params]] = list(states)
+            self.stores: List[Optional[CachedStore]] = [None] * n
+            # two snapshot buffers per shard; snapshots[s] publishes the
+            # complete one with its ready event, the other takes the next copy
+            self._buffers = [[{k: v.clone() for k, v in st.items()},
+                              {k: torch.empty_like(v) for k, v in st.items()}] for st in states]
+        else:
+            # the stores own the live values; states[] stays None so an
+            # uncached access fails instead of reading a fork
+            self.states = [None] * n
+            self.stores = [CachedStore(st, self.cache) for st in states]
+            self._buffers = [[dict(st)] for st in states]  # generation 0: the initial states
         ready = streams.record(self.device)
         self.snapshots: List[streams.Published] = [
             streams.Published(bufs[0], ready) for bufs in self._buffers]
@@ -247,14 +276,20 @@ class EmbeddingShards:
                    retry=retry, cache=cache)
 
     def share_with(self, stream_list) -> None:
-        """Record every shard tensor on each of ``stream_list``'s streams
-        (the threads that read and write them), once at the start of a run."""
-        tensors = [t for st in self.states for t in st.values()]
+        """Record every shard tensor (a cached shard's hot tier) on each of
+        ``stream_list``'s streams (the threads that read and write them),
+        once at the start of a run; a store rebuilt by ``recover_shard`` is
+        recorded on the same streams."""
+        self._streams = [st for st in stream_list if st is not None]
+        tensors = [t for st in self.states if st is not None for t in st.values()]
+        tensors += [t for store in self.stores if store is not None for t in store.tensors()]
         tensors += [t for bufs in self._buffers for b in bufs for t in b.values()]
-        for stream in stream_list:
-            if stream is not None:
-                for t in tensors:
-                    t.record_stream(stream)
+        self._share(tensors)
+
+    def _share(self, tensors) -> None:
+        for stream in self._streams:
+            for t in tensors:
+                t.record_stream(stream)
 
     # -- snapshot readers ----------------------------------------------------
     def _read_snapshot(self, s: int) -> Tuple[Params, int]:
@@ -269,22 +304,85 @@ class EmbeddingShards:
                 self._readers[s][slot][torch.cuda.current_stream().cuda_stream] = ev
 
     # -- hot path ------------------------------------------------------------
-    def lookup_shard(self, s: int, idx: torch.Tensor) -> torch.Tensor:
-        """ONE shard's pooled plane for the full (B, F, m) batch: a healthy
-        shard answers from its live table, a failed one from its snapshot
-        (the bounded-staleness read, counted in ``stale_lookups``)."""
-        if self.health[s]:
-            return embedding_bag_op(self.states[s]["table"], _route(self.plan, s, idx))
+    def _stale_lookup(self, s: int, idx: torch.Tensor) -> torch.Tensor:
+        """A failed shard answers from its snapshot (the bounded-staleness
+        read, counted in ``stale_lookups``)."""
         self.stale_lookups[s] += 1
         snap, slot = self._read_snapshot(s)
         out = embedding_bag_op(snap["table"], _route(self.plan, s, idx))
         self._done_reading(s, slot)
         return out
 
+    def lookup_shard(self, s: int, idx: torch.Tensor) -> torch.Tensor:
+        """ONE shard's pooled plane for the full (B, F, m) batch: a healthy
+        shard answers from its live table, a failed one from its snapshot."""
+        if self.health[s]:
+            return embedding_bag_op(self.states[s]["table"], _route(self.plan, s, idx))
+        return self._stale_lookup(s, idx)
+
     def lookup(self, idx: torch.Tensor) -> torch.Tensor:
         """``shard_lookup`` over the live (or, for a failed shard, snapshot)
         tables: idx (B, F, m) -> (B, F, dim)."""
+        if self.cache is not None:
+            raise RuntimeError("cached mode: use cached_lookup (lookup would read the "
+                               "full-table copy, not the live hot tier)")
         return assemble(self.plan, [self.lookup_shard(s, idx) for s in range(self.plan.n_shards)])
+
+    # -- cached hot path -----------------------------------------------------
+    def cached_lookup(self, idx: np.ndarray) -> torch.Tensor:
+        """``lookup`` through the per-shard caches: idx (B, F, m) host ids,
+        local per feature -> (B, F, dim), bitwise ``shard_lookup``. A failed
+        shard answers from its snapshot."""
+        if self.cache is None:
+            raise RuntimeError("cached_lookup requires cache= at init")
+        idx = np.asarray(idx)
+        outs = []
+        for s in range(self.plan.n_shards):
+            store = self.stores[s]
+            if store is not None and self.health[s]:
+                outs.append(store.lookup(_route_np(self.plan, s, idx)))
+            else:
+                outs.append(self._stale_lookup(s, torch.from_numpy(idx).to(self.device)))
+        return assemble(self.plan, outs)
+
+    def cached_update(self, s: int, idx: np.ndarray, g_pooled: torch.Tensor, lr: float,
+                      eps: float = 1e-8) -> bool:
+        """One Hogwild write at shard ``s`` through its cache, with
+        ``try_update``'s ladder (retry against a failed shard, then a counted
+        drop). idx is the full (B, F, m) batch on the host; shard ``s``'s
+        features and gradient planes are routed as ``shard_update`` routes
+        them."""
+        if self.cache is None:
+            raise RuntimeError("cached_update requires cache= at init")
+        idx = np.asarray(idx)
+        m, d = idx.shape[-1], g_pooled.shape[-1]
+        loc = _route_np(self.plan, s, idx).reshape(-1, m)
+        feats = _routing(self.plan, g_pooled.device)[0][s][0]
+        g = g_pooled.index_select(1, feats).reshape(-1, d)
+        retry = self.retry
+        deadline = time.perf_counter() + retry.timeout_s
+        backoff = retry.backoff_s
+        for attempt in range(retry.retries + 1):
+            store = self.stores[s]
+            if self.health[s] and store is not None:
+                store.update(loc, g, lr)
+                if self.health[s]:
+                    return True
+            if attempt == retry.retries or time.perf_counter() >= deadline:
+                break
+            time.sleep(min(backoff, max(deadline - time.perf_counter(), 0.0)))
+            backoff *= 2.0
+        self.dropped_updates[s] += 1
+        return False
+
+    def cache_stats(self) -> Dict[str, int]:
+        """``CacheStats`` summed over the live stores."""
+        total: Dict[str, int] = {}
+        for store in self.stores:
+            if store is not None:
+                for k, v in store.stats.as_dict().items():
+                    total[k] = total.get(k, 0) + v
+        return total
 
     def try_update(self, s: int, fn, *args) -> bool:
         """Route one Hogwild write at shard ``s``: ``fn(state, *args)``
@@ -294,6 +392,9 @@ class EmbeddingShards:
         the update (returns False; the drop is the measured staleness cost).
         A write that lands just as the shard fails went into the lost state,
         which recovery overwrites, and counts as not landed."""
+        if self.cache is not None:
+            raise RuntimeError("cached mode: use cached_update (try_update would write the "
+                               "full-table copy, not the live hot tier)")
         retry = self.retry
         deadline = time.perf_counter() + retry.timeout_s
         backoff = retry.backoff_s
@@ -317,6 +418,12 @@ class EmbeddingShards:
         while its copy is in flight keeps its previous snapshot."""
         if not self._snapshot_gate.acquire(blocking=False):
             return  # another thread is mid-snapshot
+        if self.cache is not None:
+            try:
+                self._snapshot_cached()
+            finally:
+                self._snapshot_gate.release()
+            return
         try:
             with self._lock:
                 todo = []
@@ -340,6 +447,20 @@ class EmbeddingShards:
         finally:
             self._snapshot_gate.release()
 
+    def _snapshot_cached(self) -> None:
+        """Cached mode: each live store's ``merged()``, new tensors, published
+        only if the same store is still live (a fail or recover during the
+        merge would make it a snapshot of a dead incarnation)."""
+        with self._lock:
+            live = [(s, self.stores[s]) for s in range(self.plan.n_shards)
+                    if self.health[s] and self.stores[s] is not None]
+        for s, store in live:
+            snap = store.merged()
+            ready = streams.record(self.device)
+            with self._lock:
+                if self.health[s] and self.stores[s] is store:
+                    self.snapshots[s] = streams.Published(snap, ready)
+
     def fail_shard(self, s: int, reason: str = "") -> None:
         """PS ``s`` dies: its live state is LOST (recovery overwrites it).
         Lookups fall back to the snapshot, updates start dropping after
@@ -348,6 +469,7 @@ class EmbeddingShards:
             if not self.health[s]:
                 return  # already down
             self.health[s] = False
+            self.stores[s] = None  # cached mode: both tiers die with the PS
             self.incarnations[s] += 1
             self.failed_at[s] = time.perf_counter()
             self.events.append(ShardEvent("ps_fail", s, self.failed_at[s], reason))
@@ -362,8 +484,15 @@ class EmbeddingShards:
             if self.health[s]:
                 return  # already up
         snap, slot = self._read_snapshot(s)
-        for k, v in self.states[s].items():
-            v.copy_(snap[k])
+        store = None
+        if self.cache is not None:
+            # a new store from the canonical snapshot: placement restarts
+            # from the default and the prefetcher re-derives it
+            store = CachedStore(snap, self.cache)
+            self._share(store.tensors())
+        else:
+            for k, v in self.states[s].items():
+                v.copy_(snap[k])
         self._done_reading(s, slot)
         done = streams.record(self.device)
         if done is not None:
@@ -371,6 +500,7 @@ class EmbeddingShards:
         with self._lock:
             if self.health[s]:
                 return  # a concurrent recovery beat us to it
+            self.stores[s] = store
             self.health[s] = True
             self.incarnations[s] += 1
             self.failed_at.pop(s, None)
@@ -381,10 +511,14 @@ class EmbeddingShards:
 
     def to_packed(self) -> Params:
         """The packed {"table", "acc"} view (new tensors). A failed shard
-        contributes its snapshot (the best surviving copy)."""
+        contributes its snapshot (the best surviving copy), a cached one its
+        store's ``merged()``."""
         states, read = [], []
         for s in range(self.plan.n_shards):
-            if self.health[s]:
+            store = self.stores[s]
+            if self.health[s] and store is not None:
+                states.append(store.merged())
+            elif self.health[s] and self.cache is None:
                 states.append(self.states[s])
             else:
                 snap, slot = self._read_snapshot(s)

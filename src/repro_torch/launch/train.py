@@ -12,13 +12,20 @@ fault-injection harness), on the CUDA card unless ``--device cpu`` is given.
       --membership-schedule "fail@20:1,join@40:1" --iters 60
   python -m repro_torch.launch.train dlrm --threaded --device cpu --tiny \
       --trainers 2 --iters 25 --batch-size 32 --crash-at 1:10 --ps-fail-at 0:5
+  python -m repro_torch.launch.train dlrm --device cpu --tiny --cache-rows 256 --lookahead 2
+  python -m repro_torch.launch.train dlrm --device cpu --tiny --iters 10 --save ck
+  python -m repro_torch.launch.train dlrm --device cpu --tiny --iters 10 --trainers 6 \
+      --restore ck
 
 The flags are the JAX launcher's (``repro/launch/train.py dlrm``);
 ``--algo`` takes every registered sync algorithm (easgd, ma, bmuf,
 gossip). ``--membership-schedule`` drives the sim's elastic membership and,
-as in the JAX launcher, is ignored with ``--threaded``. Those of parts not
-yet ported (the cache, pipelining, checkpoints, ``--auto-*``) raise
-``NotImplementedError``.
+as in the JAX launcher, is ignored with ``--threaded``, as are ``--save``
+and ``--restore`` (checkpoints of the sim's state, in the JAX package's
+format; a restore at another ``--trainers`` is elastic). ``--cache-rows N``
+keeps N rows of each embedding store on the device (the tiered cache, both
+runners) and ``--lookahead K`` peeks K queued batches. Those of parts not
+yet ported (pipelining, ``--auto-*``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.core.elp import elp
 from repro_torch.core.membership import FaultSpec
 from repro_torch.core.runners import HogwildSim, ThreadedShadowRunner
 from repro_torch.core.sync import SyncConfig
+from repro_torch.embeddings.cache import CacheConfig
 
 
 def _parse_slot_map(spec, cast):
@@ -61,10 +69,7 @@ def _parse_schedule(spec):
 
 def _unported(args) -> list:
     flags = {
-        "--cache-rows": args.cache_rows is not None,
         "--pipeline-depth > 1": args.pipeline_depth > 1,
-        "--save": args.save is not None,
-        "--restore": args.restore is not None,
         "--auto-demote": args.auto_demote,
         "--auto-mode": args.auto_mode,
     }
@@ -98,7 +103,14 @@ def _check_flags(args) -> None:
             "chaos injections into the REAL threads; they require --threaded")
 
 
-def run_threaded(args, cfg, sync_cfg) -> dict:
+def _print_cache(cs: dict) -> None:
+    hits = cs["hit_rows"] / max(cs["hit_rows"] + cs["miss_rows"], 1)
+    print(f"cache: hit_rate={hits:.3f} stalls={cs['stall_lookups']}/{cs['lookups']} "
+          f"prefetched={cs['prefetch_rows']} "
+          f"migrated={(cs['bytes_h2d'] + cs['bytes_d2h']) / 1e6:.2f}MB")
+
+
+def run_threaded(args, cfg, sync_cfg, cache) -> dict:
     fault = FaultSpec(
         straggler_sleep_s=_parse_slot_map(args.straggler, float),
         straggler_until=_parse_slot_map(args.straggler_until, int),
@@ -114,13 +126,15 @@ def run_threaded(args, cfg, sync_cfg) -> dict:
     runner = ThreadedShadowRunner(
         cfg, sync_cfg, n_trainers=args.trainers, batch_size=args.batch_size,
         optimizer=optim.make(args.optimizer, args.lr), seed=args.seed,
-        sync_sleep_s=args.sync_sleep, fault_spec=fault, device=args.device)
+        sync_sleep_s=args.sync_sleep, fault_spec=fault, cache=cache, device=args.device)
     print(f"DLRM {'tiny' if args.tiny else 'full'} threaded on {runner.device}: "
           f"{cfg.n_sparse_features} sparse features, {cfg.n_embedding_rows:,} embedding rows "
           f"on {runner.n_emb_shards} PSs {list(runner.plan.shard_rows)}; "
           f"ELP = {elp(args.batch_size, 1, args.trainers):,}")
     runner.warmup()
     out = runner.run(args.iters)
+    if out["cache_stats"]:
+        _print_cache(out["cache_stats"])
     print(f"EPS={out['eps']:.0f} (window {out['eps_window']:.0f})  "
           f"avg_sync_gap={out['avg_sync_gap']:.2f} sync_count={out['sync_count']} "
           f"rounds={out['sync_rounds']} iters/trainer={out['iter_count']} "
@@ -150,16 +164,24 @@ def run_dlrm(args) -> dict:
     cfg = dlrm_ctr.tiny(embedding_dim=args.embedding_dim) if args.tiny else dlrm_ctr.CONFIG
     sync_cfg = SyncConfig(algo=args.algo, mode=args.mode or "shadow", gap=args.sync_gap,
                           alpha=args.alpha, delay=args.sync_delay)
+    # the tiered cache: N rows of each store on the device, K batches peeked
+    cache = (CacheConfig(hot_rows=args.cache_rows, lookahead=args.lookahead)
+             if args.cache_rows is not None else None)
     if args.threaded:
-        return run_threaded(args, cfg, sync_cfg)
+        return run_threaded(args, cfg, sync_cfg, cache)
     sim = HogwildSim(cfg, sync_cfg, n_trainers=args.trainers, n_threads=args.threads,
                      batch_size=args.batch_size, optimizer=optim.make(args.optimizer, args.lr),
                      seed=args.seed, schedule=_parse_schedule(args.membership_schedule),
-                     device=args.device)
+                     cache=cache, device=args.device)
     print(f"DLRM {'tiny' if args.tiny else 'full'} on {sim.device}: "
           f"{cfg.n_sparse_features} sparse features, {cfg.n_embedding_rows:,} embedding rows; "
-          f"ELP = {elp(args.batch_size, args.threads, args.trainers):,}")
-    st0 = sim.init_state()
+          f"ELP = {elp(args.batch_size, args.threads, args.trainers):,}"
+          + (f"; cache hot_rows={args.cache_rows} lookahead={args.lookahead}" if cache else ""))
+    if args.restore:
+        st0 = sim.load_state(args.restore)
+        print(f"elastic restore <- {args.restore} (step {st0.step}, now R={sim.R})")
+    else:
+        st0 = sim.init_state()
     t0 = time.perf_counter()
     out = sim.run(args.iters, log_every=args.log_every, state=st0)
     wall = time.perf_counter() - t0
@@ -167,9 +189,16 @@ def run_dlrm(args) -> dict:
     print(f"train loss {np.mean(out['train_loss'][:10]):.5f} -> "
           f"{np.mean(out['train_loss'][-10:]):.5f}; eval {ev:.5f}; "
           f"avg_sync_gap {out['avg_sync_gap']:.2f}; EPS(sim wall) {out['examples'] / wall:.0f}")
+    if "cache_stats" in out:
+        _print_cache(out["cache_stats"])
     if out.get("membership_events"):
         print("membership:", [(e.kind, e.slot) + ((e.reason,) if e.reason else ())
                               for e in out["membership_events"]])
+    if args.save:
+        # the engine-independent elastic checkpoint: the dense replicas as
+        # the named tree stack, not the flat buffer
+        sim.save_state(args.save, out["state"])
+        print(f"checkpoint -> {args.save}")
     return {"final_train": float(np.mean(out["train_loss"][-10:])), "eval": ev,
             "avg_sync_gap": out["avg_sync_gap"]}
 
@@ -203,9 +232,9 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--membership-schedule", default=None,
                    help='the sim\'s elastic membership, "kind@iter:slot,..." '
                         '(kind: fail, leave, join); ignored with --threaded')
-    # Flags of parts not yet ported: accepted as in the JAX launcher, then refused.
-    d.add_argument("--save", default=None)
-    d.add_argument("--restore", default=None)
+    d.add_argument("--save", default=None, help="checkpoint the sim's final state here")
+    d.add_argument("--restore", default=None,
+                   help="resume the sim from this checkpoint (elastic in --trainers)")
     # The threaded runner's fault-injection harness.
     for flag in ("--crash-at", "--join-at", "--straggler", "--straggler-until", "--raise-at",
                  "--ps-fail-at"):

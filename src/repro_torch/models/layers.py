@@ -114,7 +114,8 @@ def refuse_on_card(cfg) -> None:
     if cfg.sliding_window is not None:
         raise NotImplementedError(
             f"sliding-window attention (window {cfg.sliding_window}) on the card is not yet "
-            "ported: the flash-attention kernel has no window (ROADMAP item 17)")
+            "ported: the flash-attention kernel has no window (ROADMAP queue 1, 'the other LM "
+            "families')")
 
 
 def attention_apply(

@@ -9,7 +9,8 @@ The reference's stacked layout is kept: layers are grouped by the repeating
 
 Only the dense family is ported. The mamba2 mixer, MoE layers, the vision
 projector and the ``parallel_block`` variant raise ``NotImplementedError``
-naming their ROADMAP item, as does any family other than dense.
+naming their ROADMAP queue-1 item by its subject, as does any family other
+than dense.
 """
 from __future__ import annotations
 
@@ -41,17 +42,19 @@ def check_ported(cfg: ArchConfig) -> None:
     """Refuse what the port does not compute yet, before any weight is drawn."""
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not yet ported (ROADMAP item 17); "
+            f"{cfg.name}: the {cfg.family} family is not yet ported (ROADMAP queue 1, "
+            "'the other LM families'); "
             "the port serves the dense family")
     if cfg.moe is not None or cfg.ssm is not None or set(cfg.layer_pattern) != {"A"}:
         raise NotImplementedError(f"{cfg.name}: MoE and mamba2 layers are not yet ported "
-                                  "(ROADMAP item 17)")
+                                  "(ROADMAP queue 1, 'the other LM families')")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend.kind} frontend is not yet "
-                                  "ported (ROADMAP item 17)")
+                                  "ported (ROADMAP queue 1, 'the other LM families')")
     if cfg.parallel_block:
         raise NotImplementedError(f"{cfg.name}: parallel_block (a dry-run variant) is not yet "
-                                  "ported (ROADMAP item 18)")
+                                  "ported (ROADMAP queue 1, 'sharding, dry run, mesh and "
+                                  "roofline')")
 
 
 def _unit_info(cfg: ArchConfig) -> Tuple[int, int]:

@@ -10,7 +10,7 @@ visited field by field in declaration order, as a dataclass registered with
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 Tree = Any
 
@@ -27,6 +27,27 @@ def leaves(tree: Tree) -> List[Any]:
     if isinstance(tree, (tuple, list)):
         return [x for t in tree for x in leaves(t)]
     return [tree]
+
+
+def leaves_with_path(tree: Tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs in ``leaves`` order, each path written as
+    ``jax.tree_util.tree_flatten_with_path``'s key entries print and the
+    JAX package's checkpoint joins them: dict keys and sequence indices as
+    themselves, dataclass fields as ``.field`` (a ``GetAttrKey``), joined
+    by ``/``. ``None`` is an empty subtree there, so it yields no pair."""
+    def join(key: str) -> str:
+        return f"{prefix}/{key}" if prefix else key
+
+    if tree is None:
+        return []
+    if _is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree)
+                for x in leaves_with_path(getattr(tree, f.name), join("." + f.name))]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves_with_path(tree[k], join(str(k)))]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, t in enumerate(tree) for x in leaves_with_path(t, join(str(i)))]
+    return [(prefix, tree)]
 
 
 def map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:  # noqa: A001 - jax.tree.map's name

@@ -14,6 +14,7 @@ from repro_torch import optim  # noqa: E402
 from repro_torch.configs import dlrm_ctr  # noqa: E402
 from repro_torch.core import algorithms, runners, streams, sync  # noqa: E402
 from repro_torch.core.flatspace import FlatSpace  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
 from repro_torch.kernels.easgd_update.ops import easgd_pair_flat_op, easgd_round_op  # noqa: E402
 from repro_torch.kernels.easgd_update.ref import easgd_round_ref, easgd_update_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_op  # noqa: E402
@@ -421,12 +422,99 @@ def test_tiny_elastic_sim_on_the_card(gen, algo):
 
 
 # ---------------------------------------------------------------------------
+# The tiered cache: K2 on hot slots sorted by row, cached runs on the card
+# ---------------------------------------------------------------------------
+
+import numpy as np  # noqa: E402
+
+from repro_torch.data import ctr  # noqa: E402
+from repro_torch.embeddings import table as emb  # noqa: E402
+from repro_torch.embeddings.cache import CacheConfig  # noqa: E402
+
+
+def test_sparse_adagrad_on_hot_slots_sorted_by_row_is_bitwise_the_full_table(gen):
+    """K2 at the sim's shape (iteration 0 of the full-width stream, 212,992
+    occurrences) on a hot tier whose slots are a random permutation: with
+    the rows as ``order_ids`` every hot row is bitwise the full table's;
+    sorted by slot instead, the runs meet the tiles elsewhere and the sums
+    change."""
+    cfg = dlrm_ctr.CONFIG
+    spec = emb.spec_from_config(cfg)
+    rows = (ctr.sparse_ids(cfg, 0, 0, 4 * 4 * 128) + spec.offsets[None, :, None]).reshape(
+        -1, cfg.multi_hot)
+    uniq = np.unique(rows)
+    slot_of = np.full(spec.total_rows, -1, np.int64)
+    slot_of[uniq] = np.random.default_rng(0).permutation(len(uniq))
+    table = torch.randn((spec.total_rows, spec.dim), generator=gen).cuda()
+    acc = torch.rand((spec.total_rows, spec.dim), generator=gen).cuda()
+    g = torch.randn((rows.shape[0], spec.dim), generator=gen).cuda()
+    hot_of = torch.from_numpy(uniq[np.argsort(slot_of[uniq])]).cuda()  # slot -> row
+    rows_t = torch.from_numpy(rows).cuda()
+    slots_t = torch.from_numpy(slot_of[rows]).cuda()
+    ft, fa = sparse_adagrad_op(table.clone(), acc.clone(), rows_t, g, lr=0.05)
+    ht, ha = sparse_adagrad_op(table[hot_of], acc[hot_of], slots_t, g, lr=0.05, order_ids=rows_t)
+    assert torch.equal(ht, ft[hot_of]) and torch.equal(ha, fa[hot_of])
+    nt, _ = sparse_adagrad_op(table[hot_of], acc[hot_of], slots_t, g, lr=0.05)
+    assert not torch.equal(nt, ft[hot_of])
+
+
+@pytest.mark.parametrize("engine", ["flat", "pytree"])
+def test_tiny_cached_sim_on_the_card_is_bitwise_uncached(gen, engine):
+    outs = []
+    for cache in (None, CacheConfig(hot_frac=0.25, lookahead=2)):
+        sim = runners.HogwildSim(dlrm_ctr.tiny(), sync.SyncConfig(gap=4, engine=engine),
+                                 n_trainers=2, n_threads=2, batch_size=8,
+                                 optimizer=optim.adagrad(0.02), seed=1, cache=cache,
+                                 device="cuda")
+        outs.append(sim.run(8))
+    u, c = outs
+    assert u["train_loss"] == c["train_loss"] and c["cache_stats"]["evict_rows"] > 0
+    for k in ("table", "acc"):
+        assert torch.equal(u["state"].emb_state[k], c["state"].emb_state[k])
+        assert c["state"].emb_state[k].is_cuda
+
+
+def test_tiny_threaded_cached_runs_on_the_card(gen):
+    """Two trainer streams, the shadow thread's prefetch migrating between
+    rounds; and one fixed_rate trainer bitwise its uncached run."""
+    r = runners.ThreadedShadowRunner(dlrm_ctr.tiny(), sync.SyncConfig(gap=2), n_trainers=2,
+                                     batch_size=16, optimizer=optim.adagrad(0.02),
+                                     cache=CacheConfig(hot_frac=0.3, lookahead=2), device="cuda")
+    r.warmup()
+    out = r.run(10)
+    assert out["iter_count"] == [10, 10] and all(math.isfinite(x) for x in out["train_loss"])
+    assert out["cache_stats"]["prefetch_rows"] > 0
+    assert torch.isfinite(out["emb_state"]["table"]).all()
+    one = []
+    for cache in (None, CacheConfig(hot_frac=0.25, lookahead=2)):
+        r1 = runners.ThreadedShadowRunner(dlrm_ctr.tiny(), sync.SyncConfig(mode="fixed_rate", gap=4),
+                                          n_trainers=1, batch_size=16,
+                                          optimizer=optim.adagrad(0.02), supervise=False,
+                                          cache=cache, device="cuda")
+        one.append(r1.run(12)["emb_state"])
+    for k in ("table", "acc"):
+        assert torch.equal(one[0][k], one[1][k])
+
+
+def test_checkpoint_round_trip_on_the_card(gen, tmp_path):
+    sim = runners.HogwildSim(dlrm_ctr.tiny(), sync.SyncConfig(algo="bmuf", gap=3), n_trainers=3,
+                             n_threads=2, batch_size=32, optimizer=optim.adagrad(0.02),
+                             device="cuda")
+    st = sim.run(4)["state"]
+    sim.save_state(str(tmp_path / "ck"), st)
+    st2 = sim.load_state(str(tmp_path / "ck"))
+    for (k, a), (_, b) in zip(T.leaves_with_path(sim._state_tree(st)),
+                              T.leaves_with_path(sim._state_tree(st2))):
+        assert b.is_cuda and torch.equal(a, b), k
+    assert sim.run(2, state=st)["train_loss"] == sim.run(2, state=st2)["train_loss"]
+
+
+# ---------------------------------------------------------------------------
 # K9 · flash attention, K8 · interaction, and the serving path that runs K9
 # ---------------------------------------------------------------------------
 
 import dataclasses  # noqa: E402
 
-from repro_torch import tree as T  # noqa: E402
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import gqa_attention_op  # noqa: E402
@@ -472,13 +560,14 @@ def test_flash_attention_bf16_at_the_prefill_shape(gen):
 
 
 @pytest.mark.parametrize("s", [1, 33, 127, 128, 129, 1000])
-@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("n_rep", [1, 4, 8, 48])
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bf16_tensor_core_edges(gen, s, n_rep, d, causal):
     """The tensor-core kernel's edges: S about its 128-row tiles (rows and
     keys past S are TMA's zero fill, masked), every GQA ratio of the
-    reference's configs, each head dim (d = 32 takes the 64-byte swizzle).
+    reference's configs up to MQA's 48 query heads a KV head (granite-20b
+    and -34b), each head dim (d = 32 takes the 64-byte swizzle).
     The reference's bf16 tolerance, and 1e-2 in the relative norm."""
     q = torch.randn((2, s, 2 * n_rep, d), generator=gen).to("cuda", torch.bfloat16)
     k, v = (torch.randn((2, s, 2, d), generator=gen).to("cuda", torch.bfloat16)

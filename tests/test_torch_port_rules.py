@@ -13,12 +13,14 @@ from repro_torch import optim  # noqa: E402
 from repro_torch.configs import dlrm_ctr  # noqa: E402
 from repro_torch.core import algorithms, runners, sync  # noqa: E402
 from repro_torch.core.membership import Membership  # noqa: E402
+from repro_torch.embeddings.cache import CacheConfig  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
-FORBIDDEN = ("jax", "jaxlib", "repro")
+# the card's machine has no ml_dtypes: the port carries bf16 bits as int16
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
@@ -51,8 +53,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 def test_import_scan_catches_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
-    p.write_text("import os\nfrom repro.core import sync\nimport jax.numpy as jnp\n")
-    assert sorted(m for m in _imported_roots(str(p)) if m in FORBIDDEN) == ["jax", "repro"]
+    p.write_text("import os\nfrom repro.core import sync\nimport jax.numpy as jnp\n"
+                 "import ml_dtypes\n")
+    assert sorted(m for m in _imported_roots(str(p)) if m in FORBIDDEN) == \
+        ["jax", "ml_dtypes", "repro"]
 
 
 def _sim(**kw):
@@ -90,30 +94,41 @@ def test_resolve_device():
 @pytest.mark.parametrize("option", ["membership", "schedule", "cache", "pipeline",
                                     "mode_schedule"])
 def test_sim_refuses_unported_options(option):
-    """Options of parts not yet ported are refused. ``membership`` and
-    ``schedule`` are ported now: each is accepted and trains."""
-    ported = {"membership": Membership(2, R_max=3), "schedule": [(1, "fail", 1)]}
+    """Options of parts not yet ported are refused. ``membership``,
+    ``schedule`` and ``cache`` are ported now: each is accepted and trains."""
+    ported = {"membership": Membership(2, R_max=3), "schedule": [(1, "fail", 1)],
+              "cache": CacheConfig(hot_frac=0.5)}
     if option in ported:
         out = _sim(device="cpu", **{option: ported[option]}).run(2)
         assert len(out["train_loss"]) == 2 and all(v == v for v in out["train_loss"])
-        assert out["replica_losses"].shape[0] == 2
+        if option == "cache":
+            assert out["cache_stats"]["lookups"] == 2
+        else:
+            assert out["replica_losses"].shape[0] == 2
         return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _sim(device="cpu", **{option: object()})
 
 
 @pytest.mark.parametrize("flags", [
-    ["--threaded", "--cache-rows", "100"], ["--cache-rows", "100"], ["--pipeline-depth", "2"],
+    ["--threaded", "--cache-rows", "800"], ["--cache-rows", "800"], ["--pipeline-depth", "2"],
     ["--membership-schedule", "fail@2:1"], ["--save", "ck"], ["--restore", "ck"],
     ["--auto-demote"], ["--auto-mode"], ["--threaded", "--auto-demote"],
 ])
-def test_cli_refuses_unported_flags(flags):
-    """Flags of parts not yet ported are refused; ``--membership-schedule``
-    is ported now: it is accepted and trains."""
-    if flags[0] == "--membership-schedule":
+def test_cli_refuses_unported_flags(flags, tmp_path):
+    """Flags of parts not yet ported are refused; ``--membership-schedule``,
+    ``--cache-rows``, ``--save`` and ``--restore`` are ported now: each is
+    accepted and trains (``--restore`` from a checkpoint saved first)."""
+    if flags[-1] == "ck":
+        flags = flags[:-1] + [str(tmp_path / "ck")]
+        if flags[0] == "--restore":
+            train.main(["dlrm", "--device", "cpu", "--tiny", "--iters", "1", "--eval-batches",
+                        "1", "--save", flags[1]])
+    if flags[0] in ("--membership-schedule", "--save", "--restore") or "--cache-rows" in flags:
+        small = ["--batch-size", "8", "--trainers", "2", "--threads", "2"]
         out = train.main(["dlrm", "--device", "cpu", "--tiny", "--iters", "2",
-                          "--eval-batches", "1", *flags])
-        assert all(v == v for v in out.values())
+                          "--eval-batches", "1", *small, *flags])
+        assert all(v == v for v in out.values() if isinstance(v, float))
         return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.main(["dlrm", "--device", "cpu", "--iters", "1", *flags])

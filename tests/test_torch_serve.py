@@ -7,7 +7,9 @@ jitted on the CPU, as its launcher runs them. Reduced phi3-medium-14b keeps
 GQA (4 query heads on 2 KV heads); reduced minicpm-2b is MHA with tied
 embeddings, and its vocab is cut to 500 so the head is padded to 512;
 phi3 with a 64-token sliding window runs the plain attention path (on the
-CPU only: the card refuses a window).
+CPU only: the card refuses a window); reduced granite-20b is MQA (4 query
+heads on 1 KV head). A bf16 reduced phi3 is held to the JAX package at a
+bound set for bf16 rounding.
 """
 import dataclasses
 import functools
@@ -34,7 +36,15 @@ N_DECODE = 8
 ARCHS = {"phi3": ("phi3-medium-14b", dict(n_kv_heads=2)),
          "minicpm": ("minicpm-2b", dict(vocab_size=500)),
          # the CPU's plain path for a window (CONFIG_SWA's, cut as reduced() cuts it)
-         "phi3_swa": ("phi3-medium-14b", dict(n_kv_heads=2, sliding_window=64))}
+         "phi3_swa": ("phi3-medium-14b", dict(n_kv_heads=2, sliding_window=64)),
+         # MQA, as granite-20b and -34b: every query head on one KV head
+         "granite": ("granite-20b", {})}
+# bf16 serving: the two packages round to bf16 at other places (the port's
+# prefill attention keeps f32 scores, the JAX package's bf16 scores and
+# probabilities), so the prefill logits differ by ~1% in norm. Measured on
+# reduced phi3 (2 layers, d_model 256, 4/2 heads): relative norm 1.38% at
+# S=64 and 1.18% at S=200, max abs 0.047; decode logits 0.9-1.3% a step.
+BF16_REL_NORM = 2e-2
 
 
 def _cfgs(name):
@@ -115,6 +125,31 @@ def test_greedy_decode_matches_jax(name, prompt_len):
         np.testing.assert_allclose(logits.numpy(), j_logits, **TOL)
         assert np.array_equal(tok.numpy(), j_tok), (i, tok, j_tok)
     _check_cache(cache, want["final_cache"])
+
+
+@pytest.mark.parametrize("prompt_len", [64, 200])
+def test_bf16_prefill_and_first_decode_token_match_jax(prompt_len):
+    """bf16 prefill logits within BF16_REL_NORM of the JAX package's, the
+    same last-token argmax, and the same token from the first decode step.
+    Later greedy tokens may part: a ~1% perturbation flips a near-tie of the
+    two best logits. Here (B=2) all 16 tokens agreed at S=64 and S=200; in
+    an earlier run at B=4, S=200 one of four sequences parted at step 4."""
+    jcfg, cfg = (dataclasses.replace(c, dtype="bfloat16") for c in _cfgs("phi3"))
+    params = jspmd.init_params(jcfg, jax.random.PRNGKey(0))
+    toks = _prompts(cfg.vocab_size, prompt_len)
+    s_max = prompt_len + 1
+    jl, jc = jax.jit(jspmd.make_prefill_step(jcfg, s_max))(params, {"tokens": jnp.asarray(toks)})
+    p = interop.lm_params_from_numpy(jax.tree.map(np.asarray, params))
+    pl, pc = transformer.prefill(p, cfg, torch.from_numpy(toks), s_max)
+    assert pl.dtype == torch.bfloat16
+    got, want = pl.float().numpy(), np.asarray(jl, np.float32)
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= BF16_REL_NORM
+    assert np.array_equal(got.argmax(-1), want.argmax(-1))
+    jt = jnp.argmax(jl, -1)
+    jl, _ = jax.jit(jspmd.make_decode_step(jcfg))(params, jc, jt, jnp.asarray(prompt_len,
+                                                                              jnp.int32))
+    pl, _ = transformer.decode_step(p, cfg, pc, torch.from_numpy(np.array(jt)), prompt_len)
+    assert np.array_equal(torch.argmax(pl, -1).numpy(), np.asarray(jnp.argmax(jl, -1)))
 
 
 def test_forward_matches_jax():

@@ -19,6 +19,7 @@ from repro.embeddings import table as jtable  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import dlrm_ctr  # noqa: E402
 from repro_torch.embeddings import shards, table  # noqa: E402
+from repro_torch.embeddings.cache import CacheConfig  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)  # the reference's kernel tolerance
 D = 8
@@ -212,6 +213,13 @@ def test_to_packed_of_a_down_shard_is_its_snapshot():
 
 
 def test_holder_refuses_the_cache():
+    """The cache is ported now: a cached holder refuses the uncached hot
+    path instead (tests/test_torch_cache.py holds the cached one)."""
     _, _, _, _, _, _, plan = _lookup_update_inputs(0, 2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        shards.EmbeddingShards(plan, [], cache=object())
+    embs = shards.EmbeddingShards.init(plan, torch.Generator().manual_seed(0),
+                                       cache=CacheConfig(hot_frac=0.5))
+    idx = torch.zeros((1, len(plan.spec.sizes), plan.spec.multi_hot), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="cached_lookup"):
+        embs.lookup(idx)
+    with pytest.raises(RuntimeError, match="cached_update"):
+        embs.try_update(0, lambda st: st)

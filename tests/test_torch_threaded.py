@@ -33,6 +33,7 @@ from repro_torch.core.membership import FaultSpec  # noqa: E402
 from repro_torch.core.supervision import SupervisorConfig  # noqa: E402
 from repro_torch.data import ctr  # noqa: E402
 from repro_torch.embeddings import shards  # noqa: E402
+from repro_torch.embeddings.cache import CacheConfig  # noqa: E402
 from repro_torch.models import dlrm  # noqa: E402
 
 TRAJ = dict(rtol=1e-4, atol=1e-5)  # the reference's trajectory tolerance
@@ -189,6 +190,12 @@ def test_ps_fail_serves_snapshot_then_recovers():
 
 @pytest.mark.parametrize("option", ["cache", "pipeline", "straggler_policy", "mode_controller"])
 def test_unported_options_raise(option):
+    """Options of parts not yet ported raise; ``cache`` is ported now: it is
+    accepted and trains (tests/test_torch_cache.py holds it to the uncached run)."""
+    if option == "cache":
+        out = _runner(cache=CacheConfig(hot_frac=0.5, lookahead=1)).run(3)
+        assert out["iter_count"] == [3, 3] and out["cache_stats"]["lookups"] > 0
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _runner(**{option: object()})
 

@@ -42,6 +42,20 @@ Phases, each of which asserts (any failure exits non-zero):
      saved and restored bitwise (two more iterations agree), and restored
      elastically at R+1 (the joined slot is EASGD's PS plane, its optimizer
      state fresh);
+     then step pipelining, the straggler policy and mode switching: the
+     full-width sim pipelined (depth 2) bitwise its serial run (nothing
+     stages there: the small tables share rows between batches); a wide
+     configuration (four 4,000,000-row tables, multi-hot 1, R=4 x M=1 x
+     B=32) where the stager does stage, at depths 2 and 3, uncached and
+     cached, each bitwise its serial run; the threaded runner pipelined at
+     full width, and one wide fixed_rate trainer pipelined bitwise its
+     serial run; no pipelined run may report a stager error. Then slot 3
+     slowed by an injected sleep (set from the pace of the mode, measured
+     in phase 5):
+     the straggler policy demotes and re-admits it in shadow and in
+     fixed_rate, the mode controller moves a fixed_rate cohort to shadow,
+     and the full-width sim under a scripted shadow -> fixed_rate ->
+     shadow schedule matches its host replay (mode events, syncs, K3);
   7. the serving path: the DLRM state released (device memory before and
      after), phi3-medium-14b at the full width of its CONFIG (bf16, 14.7 B
      parameters drawn on the card), K9 held against its plain version on
@@ -108,6 +122,23 @@ ATTN_CASES = ((1, 128, 2, 2, 64, True), (1, 128, 2, 2, 64, False), (1, 100, 2, 2
 CACHE_HOT_ROWS, CACHE_LOOKAHEAD, CACHE_ITERS, CACHE_PROFILED = 1 << 20, 2, 6, 3
 THREADED_HOT_ROWS, THREADED_CACHE_ITERS, ONE_TRAINER_ITERS = 1 << 18, 16, 8
 CKPT_NEXT_ITERS = 2  # iterations run from the saved and the restored state
+# the step pipeline: the full-width sim (nothing stages there: the small
+# tables put a shared row in every pair of consecutive batches), and a wide
+# configuration where staging happens: four tables of 4,000,000 rows,
+# multi-hot 1, R=4 x M=1 x B=32 (512 ids a step), d=64, 8.19 GB of table and
+# accumulator; its hot tier holds about three batches, lookahead 2
+PIPE_FULL_ITERS, PIPE_WIDE_ROWS, PIPE_WIDE_B, PIPE_WIDE_ITERS = 8, 4_000_000, 32, 12
+PIPE_WIDE_HOT, PIPE_THREADED_ITERS, PIPE_ONE_ITERS = 1536, 16, 10
+# the straggler (slot 3) sleeps two iterations' worth of the measured
+# per-trainer pace in its mode (its busy pace falls to a third of the
+# others') for its first STRAGGLE_UNTIL iterations; the busy-clock meters'
+# window, the policy's window and probation, and the controller's window
+# and dwell are set in such iterations too, so the phase holds at any pace
+# of the card (re-admission came at about 18 of them on the H100)
+STRAGGLE_SLEEP, STRAGGLE_METER, STRAGGLE_WINDOW = 2.0, 8.0, 2.0
+STRAGGLE_UNTIL, STRAGGLE_ITERS = 4, 32
+MODE_ITERS, MODE_SIM_ITERS = 16, 14
+MODE_SCRIPT = ((3, "fixed_rate"), (9, "shadow"))  # the sim's scripted handoffs
 
 # torch.profiler traces: the marker kernel (torch.cuda._sleep's) that opens
 # and closes the recorded run, its length, the card's clock for the pad
@@ -151,7 +182,12 @@ def hits(dev_name, event_name):
     return any(g in event_name for g in globals_of(dev_name))
 
 
+STARTED = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:  # seconds since the script started: where its time goes
+        obj = {**obj, "at_s": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -1511,6 +1547,381 @@ def checkpoint_phase(torch, cfg, sim, st):
     assert not os.path.exists(d)
 
 
+def mode_plan(sim, n_iters, switches):
+    """(mode_events, sync_count, K3 launches) of an EASGD flat sim run of
+    ``n_iters`` from step 0 under the scripted ``switches`` [(iteration,
+    mode)], replayed on the host from the sim's own ``_shadow_schedule``:
+    a switch to fixed_rate drops the in-flight launch and lands one catch-up
+    sync of every replica, fixed_rate lands every ``gap`` iterations from
+    that anchor, a switch back to shadow restarts the staggered clocks from
+    the last global sync; each landing is one K3 launch (delay >= 1)."""
+    sc, R = sim.sync_cfg, sim.R
+    cur, events, syncs, k3 = sc.mode, [], 0, 0
+    pending, last_global, anchor, base = None, 0, 0, 0
+    for t in range(n_iters):
+        mode = sc.mode
+        for tt, m in sorted(switches):
+            if tt <= t:
+                mode = m
+        if mode != cur:
+            if mode == "fixed_rate":
+                pending, syncs, k3 = None, syncs + R, k3 + 1
+                last_global = anchor = t
+            else:
+                base = last_global
+            events.append((t, cur, mode))
+            cur = mode
+        if cur == "fixed_rate":
+            if (t + 1 - anchor) % sc.gap == 0:
+                syncs, k3, last_global = syncs + R, k3 + 1, t + 1
+            continue
+        if pending is not None and t + 1 >= pending[0]:
+            syncs, k3, pending = syncs + pending[1], k3 + 1, None
+        mask = sim._shadow_schedule(t + 1 - base)
+        if pending is None and mask.any():
+            pending = (t + 1 + sc.delay, int(mask.sum()))
+    return events, syncs, k3
+
+
+class StagerClock:
+    """Host seconds of the step pipeline's two sides in a run: the stager's
+    jobs (peek, hazard check, staged lookup) and the owner's ``consume``
+    (mostly waiting for the job of its step). Installed on
+    ``StepPipeline`` for the ``with`` block only."""
+
+    def __init__(self):
+        from repro_torch.core.pipeline import StepPipeline
+
+        self.cls, self.job_s, self.consume_s, self.jobs = StepPipeline, 0.0, 0.0, 0
+
+    def _wrap(self, fn, field):
+        def timed(pipe, *a):
+            t0 = time.perf_counter()
+            try:
+                return fn(pipe, *a)
+            finally:
+                setattr(self, field, getattr(self, field) + time.perf_counter() - t0)
+                self.jobs += field == "job_s"
+        return timed
+
+    def __enter__(self):
+        self.saved = self.cls._run_job, self.cls.consume
+        self.cls._run_job = self._wrap(self.saved[0], "job_s")
+        self.cls.consume = self._wrap(self.saved[1], "consume_s")
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._run_job, self.cls.consume = self.saved
+
+    def row(self, iters):
+        return {"stager_job_ms": self.job_s / max(self.jobs, 1) * 1e3,
+                "consume_ms_per_iter": self.consume_s / iters * 1e3}
+
+
+class TablesFrom:
+    """Within the block, every threaded runner's ``run`` splits ``tables``
+    (the same seed's draw of the same configuration, made once) instead of
+    drawing its own on the host: the values are those it would draw."""
+
+    def __init__(self, tables):
+        from repro_torch.embeddings import shards
+
+        self.shards, self.tables = shards, tables
+
+    def __enter__(self):
+        self.drawn = self.shards.init_tables
+        self.shards.init_tables = lambda spec, gen, device=None: self.tables
+        return self
+
+    def __exit__(self, *exc):
+        self.shards.init_tables = self.drawn
+
+
+def run_timed(torch, sim, iters, state, all_ops):
+    """One sim run from ``state``, its counts set to 0 just before:
+    (output, ms an iteration, {kernel: launches})."""
+    stamps = []
+    torch.cuda.synchronize()
+    reset_counts(all_ops.values())
+    out = sim.run(iters, state=state, on_iter=lambda t, loss: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    counts = {k: op.launches for k, op in all_ops.items()}
+    return out, (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3, counts
+
+
+def assert_bitwise(torch, a, b, what):
+    assert a["train_loss"] == b["train_loss"], (what, a["train_loss"], b["train_loss"])
+    for k in ("table", "acc"):
+        assert torch.equal(a["state"].emb_state[k], b["state"].emb_state[k]), (what, k)
+    assert torch.equal(a["state"].w_stack, b["state"].w_stack), what
+
+
+def pipeline_phase(torch, cfg, all_ops, path_counts):
+    """``pipeline_path``, the step pipeline: the full-width sim pipelined
+    (depth 2) against serial from one state, bitwise; the wide configuration
+    (four 4,000,000-row tables, multi-hot 1), where consecutive batches share
+    no row and the stager really stages, at depths 2 and 3, uncached and
+    cached, each bitwise its serial run with ``overlapped`` > 0; the threaded
+    runner pipelined at cell 2's width, and one fixed_rate trainer on the wide
+    configuration pipelined against serial. Every pipelined run must report
+    no stager error. Returns the full-width tables of seed 0 as drawn, for
+    the threaded runners of the next phase."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch import tree as T
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.core.runners import HogwildSim, SimState, ThreadedShadowRunner
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.embeddings.cache import CacheConfig
+
+    def clone(st):
+        return SimState(st.w_stack.clone(), T.map(torch.clone, st.opt_stack),
+                        T.map(torch.clone, st.emb_state), st.algo_state.clone(), st.step)
+
+    def sim_of(c, r, m, b, pipe=None, cache=None):
+        return HogwildSim(c, SyncConfig(), n_trainers=r, n_threads=m, batch_size=b,
+                          optimizer=optim.adagrad(0.02), seed=0, cache=cache, pipeline=pipe,
+                          device="cuda")
+
+    def pipe_ok(ps, what, shards=1):
+        assert ps["worker_errors"] == 0, (what, ps)
+        assert ps["shard_steps"] == shards * ps["steps"] > 0, (what, ps)
+
+    # 1 · full width: every staged job collides on the small tables
+    base_sim = sim_of(cfg, R, M, B)
+    st0 = base_sim.init_state()
+    # the threaded runners draw these tables from the same seed
+    full_tables = T.map(torch.clone, st0.emb_state)
+    serial, ms_s, c_s = run_timed(torch, base_sim, PIPE_FULL_ITERS, clone(st0), all_ops)
+    with StagerClock() as clock:
+        piped, ms_p, c_p = run_timed(torch, sim_of(cfg, R, M, B, PipelineConfig(2)),
+                                     PIPE_FULL_ITERS, st0, all_ops)
+    path_counts["pipeline_full"] = c_p
+    assert_bitwise(torch, serial, piped, "full width")
+    ps = piped["pipeline_stats"]
+    pipe_ok(ps, "full width")
+    for counts in (c_s, c_p):
+        assert counts["embedding_bag"] == counts["sparse_adagrad"] == PIPE_FULL_ITERS, counts
+    emit({"phase": "pipeline_path", "config": "full", "depth": 2, "iters": PIPE_FULL_ITERS,
+          "bitwise": True, "pipeline_stats": ps, "ms_per_iter_serial": ms_s,
+          "ms_per_iter_pipelined": ms_p, **clock.row(PIPE_FULL_ITERS),
+          "launches": {k: c_p[k] for k in ("embedding_bag",
+                                                                         "sparse_adagrad",
+                                                                         "easgd_round")}})
+    del base_sim, st0, serial, piped
+    release(torch)
+
+    # 2 · the wide configuration: staging happens
+    wide = dataclasses.replace(cfg, table_sizes=(PIPE_WIDE_ROWS,) * 4, n_sparse_features=4,
+                               multi_hot=1)
+    t0 = time.perf_counter()
+    base_sim = sim_of(wide, R, 1, PIPE_WIDE_B)
+    st0 = base_sim.init_state()
+    torch.cuda.synchronize()
+    table_gb = sum(v.numel() * v.element_size() for v in st0.emb_state.values()) / 1e9
+    emit({"phase": "pipeline_setup", "config": "wide", "rows": wide.n_embedding_rows,
+          "table_and_acc_GB": table_gb, "ids_per_iter": R * PIPE_WIDE_B * 4,
+          "seconds": time.perf_counter() - t0})
+    for cached in (False, True):
+        cache = (CacheConfig(hot_rows=PIPE_WIDE_HOT, lookahead=2) if cached else None)
+        serial, ms_s, c_s = run_timed(torch, sim_of(wide, R, 1, PIPE_WIDE_B, cache=cache),
+                                      PIPE_WIDE_ITERS, clone(st0), all_ops)
+        for depth in (2, 3):
+            name = f"pipeline_wide_{'cached' if cached else 'uncached'}_d{depth}"
+            with StagerClock() as clock:
+                piped, ms_p, c_p = run_timed(
+                    torch, sim_of(wide, R, 1, PIPE_WIDE_B, PipelineConfig(depth), cache),
+                    PIPE_WIDE_ITERS, clone(st0), all_ops)
+            path_counts[name] = c_p
+            assert_bitwise(torch, serial, piped, name)
+            ps = piped["pipeline_stats"]
+            pipe_ok(ps, name)
+            assert ps["overlapped"] > 0, (name, ps)
+            assert c_p["embedding_bag"] == c_p["sparse_adagrad"] == PIPE_WIDE_ITERS, c_p
+            row = {"phase": "pipeline_path", "config": "wide", "cached": cached, "depth": depth,
+                   "iters": PIPE_WIDE_ITERS, "bitwise": True, "pipeline_stats": ps,
+                   "ms_per_iter_serial": ms_s, "ms_per_iter_pipelined": ms_p,
+                   **clock.row(PIPE_WIDE_ITERS),
+                   "launches": {k: c_p[k] for k in ("embedding_bag", "sparse_adagrad",
+                                                    "easgd_round")}}
+            if cached:
+                cs = piped["cache_stats"]
+                assert cs["staged_lookups"] == ps["overlapped"], (cs, ps)
+                row.update(hot_rows=PIPE_WIDE_HOT, cache_stats=cs)
+            emit(row)
+            del piped
+        del serial
+        release(torch)
+    wide_tables = st0.emb_state  # as drawn: the threaded wide runs take them
+    del base_sim, st0
+    release(torch)
+
+    # 3 · threaded: cell 2's runner pipelined; one wide fixed_rate trainer
+    runner = ThreadedShadowRunner(cfg, SyncConfig(), n_trainers=R, batch_size=B,
+                                  optimizer=optim.adagrad(0.02), n_emb_shards=N_SHARDS,
+                                  pipeline=PipelineConfig(2), device="cuda")
+    runner.warmup()
+    reset_counts(all_ops.values())
+    with TablesFrom(full_tables):
+        out = runner.run(PIPE_THREADED_ITERS)
+    counts = path_counts["pipeline_threaded"] = {k: op.launches for k, op in all_ops.items()}
+    ps = out["pipeline_stats"]
+    pipe_ok(ps, "threaded", N_SHARDS)
+    n_calls = R * N_SHARDS * PIPE_THREADED_ITERS
+    assert all(math.isfinite(x) for x in out["train_loss"]), out["train_loss"]
+    assert out["iter_count"] == [PIPE_THREADED_ITERS] * R, out["iter_count"]
+    assert counts["embedding_bag"] == counts["sparse_adagrad"] == n_calls, counts
+    assert ps["shard_steps"] == n_calls, ps
+    emit({"phase": "pipeline_path", "config": "full", "runner": "threaded", "depth": 2,
+          "trainers": R, "iters_per_trainer": PIPE_THREADED_ITERS, "eps": out["eps"],
+          "wall_s": out["wall_s"], "train_loss": out["train_loss"], "pipeline_stats": ps,
+          "launches": {k: counts[k] for k in ("embedding_bag", "sparse_adagrad", "easgd_pair")}})
+    del runner, out
+    release(torch)
+    one = {}
+    with TablesFrom(wide_tables):
+        for pipe in (None, PipelineConfig(2)):
+            r1 = ThreadedShadowRunner(wide, SyncConfig(mode="fixed_rate", gap=4), n_trainers=1,
+                                      batch_size=B, optimizer=optim.adagrad(0.02),
+                                      n_emb_shards=N_SHARDS, supervise=False, pipeline=pipe,
+                                      device="cuda")
+            reset_counts(all_ops.values())
+            o = r1.run(PIPE_ONE_ITERS)
+            one[pipe is not None] = (o, {k: op.launches for k, op in all_ops.items()})
+            del r1
+    del wide_tables
+    (s1, _), (p1, c1) = one[False], one[True]
+    path_counts["pipeline_threaded_wide"] = c1
+    assert s1["train_loss"] == p1["train_loss"], (s1["train_loss"], p1["train_loss"])
+    for k in ("table", "acc"):
+        assert torch.equal(s1["emb_state"][k], p1["emb_state"][k]), k
+    assert all(torch.equal(a, b) for a, b in zip(T.leaves(s1["w"][0]), T.leaves(p1["w"][0])))
+    ps = p1["pipeline_stats"]
+    pipe_ok(ps, "threaded wide", N_SHARDS)
+    assert ps["overlapped"] > 0, ps
+    assert c1["embedding_bag"] == c1["sparse_adagrad"] == N_SHARDS * PIPE_ONE_ITERS, c1
+    emit({"phase": "pipeline_path", "config": "wide", "runner": "threaded", "trainers": 1,
+          "mode": "fixed_rate", "depth": 2, "iters": PIPE_ONE_ITERS, "bitwise": True,
+          "pipeline_stats": ps})
+    del one, s1, p1
+    release(torch)
+    return full_tables
+
+
+def straggler_runner(cfg, mode, unit, **kw):
+    """Four full-width EASGD trainers; slot 3 sleeps STRAGGLE_SLEEP ``unit``s
+    (one iteration at the measured pace) an iteration for its first
+    STRAGGLE_UNTIL iterations (the injected straggler)."""
+    from repro_torch import optim
+    from repro_torch.core.membership import FaultSpec
+    from repro_torch.core.runners import ThreadedShadowRunner
+    from repro_torch.core.sync import SyncConfig
+
+    r = ThreadedShadowRunner(cfg, SyncConfig(mode=mode), n_trainers=R, batch_size=B,
+                             optimizer=optim.adagrad(0.02), n_emb_shards=N_SHARDS,
+                             eps_window_s=STRAGGLE_METER * unit,
+                             fault_spec=FaultSpec(straggler_sleep_s={R - 1: STRAGGLE_SLEEP * unit},
+                                                  straggler_until={R - 1: STRAGGLE_UNTIL}),
+                             device="cuda", **kw)
+    r.warmup()
+    return r
+
+
+def policy_mode_phase(torch, cfg, all_ops, path_counts, paces, full_tables):
+    """``policy_path`` and ``mode_path``: the straggler policy demotes slot 3
+    (an injected sleep of two iterations at this card's measured pace in
+    the mode, ``paces[mode]`` examples/s a trainer, so
+    its busy pace falls to a third of the others', under the 0.5 floor) and
+    re-admits it after probation, in shadow and in fixed_rate (the monitor
+    thread);
+    the mode controller moves a fixed_rate run with that straggler to shadow;
+    the full-width sim under a scripted shadow -> fixed_rate -> shadow
+    schedule, its mode events, syncs and K3 launches equal to the host's
+    replay."""
+    from repro_torch import optim
+    from repro_torch.core.modeswitch import ModeConfig, ModeController
+    from repro_torch.core.runners import HogwildSim
+    from repro_torch.core.scheduler import PolicyConfig, StragglerPolicy
+    from repro_torch.core.sync import SyncConfig
+
+    for mode in ("shadow", "fixed_rate"):
+        unit = B / paces[mode]  # one iteration of one trainer in the mode, in s
+        window = STRAGGLE_WINDOW * unit
+        policy = StragglerPolicy(PolicyConfig(window_s=window, probation_s=window), n_slots=R)
+        runner = straggler_runner(cfg, mode, unit, straggler_policy=policy)
+        reset_counts(all_ops.values())
+        with TablesFrom(full_tables):
+            out = runner.run(STRAGGLE_ITERS)
+        counts = path_counts[f"policy_{mode}"] = {k: op.launches for k, op in all_ops.items()}
+        events = [(e.kind, e.slot, e.reason) for e in out["membership_events"]]
+        kinds = [(k, s) for k, s, _ in events]
+        assert kinds[:3] == [("leave", R - 1), ("join", R - 1), ("activate", R - 1)], events
+        assert events[0][2].startswith("straggler") and events[1][2].startswith("probation")
+        assert out["iter_count"] == [STRAGGLE_ITERS] * R, out["iter_count"]
+        assert all(math.isfinite(x) for x in out["train_loss"]), out["train_loss"]
+        assert counts["embedding_bag"] == R * N_SHARDS * STRAGGLE_ITERS, counts
+        if mode == "fixed_rate":
+            assert out["sync_rounds"] == 0 and counts["easgd_pair"] > 0, (out["sync_rounds"],
+                                                                          counts)
+        emit({"phase": "policy_path", "mode": mode, "iteration_s": unit,
+              "sleep_s": STRAGGLE_SLEEP * unit, "window_s": window,
+              "straggler_until": STRAGGLE_UNTIL, "iters_per_trainer": STRAGGLE_ITERS,
+              "membership_events": events,
+              "policy_transitions": [[round(t - out["t_start"], 3), s, a, b]
+                                     for t, s, a, b in out["policy_transitions"]],
+              "per_trainer_eps_busy": out["per_trainer_eps_busy"], "eps": out["eps"],
+              "sync_count": out["sync_count"], "wall_s": out["wall_s"],
+              "launches": {k: counts[k] for k in ("embedding_bag", "sparse_adagrad",
+                                                  "easgd_pair")}})
+        del runner, out
+        release(torch)
+
+    # the mode controller: a fixed_rate cohort with the straggler goes to
+    # shadow (its clocks in shadow iterations: the pace it moves to)
+    unit = B / paces["shadow"]
+    window = STRAGGLE_WINDOW * unit
+    ctl = ModeController(ModeConfig(skew_high=2.0, skew_low=1.3, window_s=window,
+                                    min_dwell_s=1.5 * window, start_mode="fixed_rate"))
+    runner = straggler_runner(cfg, "fixed_rate", unit, mode_controller=ctl)
+    reset_counts(all_ops.values())
+    with TablesFrom(full_tables):
+        out = runner.run(MODE_ITERS)
+    counts = path_counts["mode_threaded"] = {k: op.launches for k, op in all_ops.items()}
+    trans = [(round(t - out["t_start"], 3), a, b) for t, a, b, _ in out["mode_transitions"]]
+    assert trans and trans[0][1:] == ("fixed_rate", "shadow"), trans
+    assert any(e.kind == "mode_switch" for e in out["membership_events"])
+    assert out["iter_count"] == [MODE_ITERS] * R and counts["easgd_pair"] > 0, counts
+    emit({"phase": "mode_path", "runner": "threaded", "sleep_s": STRAGGLE_SLEEP * unit,
+          "iters_per_trainer": MODE_ITERS, "mode_transitions": trans, "final_mode": out["mode"],
+          "sync_count": out["sync_count"], "sync_rounds": out["sync_rounds"], "eps": out["eps"],
+          "per_trainer_eps_busy": out["per_trainer_eps_busy"],
+          "launches": {k: counts[k] for k in ("embedding_bag", "sparse_adagrad", "easgd_pair")}})
+    del runner, out
+    release(torch)
+
+    # the full-width sim under a scripted schedule, against the host replay
+    sim = HogwildSim(cfg, SyncConfig(), n_trainers=R, n_threads=M, batch_size=B,
+                     optimizer=optim.adagrad(0.02), mode_schedule=list(MODE_SCRIPT),
+                     device="cuda")
+    want_events, want_syncs, want_k3 = mode_plan(sim, MODE_SIM_ITERS, MODE_SCRIPT)
+    st = sim.init_state()
+    out, ms, counts = run_timed(torch, sim, MODE_SIM_ITERS, st, all_ops)
+    path_counts["mode_sim"] = counts
+    assert out["mode_events"] == want_events, (out["mode_events"], want_events)
+    assert out["sync_count"] == want_syncs, (out["sync_count"], want_syncs)
+    assert counts["easgd_round"] == want_k3, (counts["easgd_round"], want_k3)
+    assert counts["embedding_bag"] == counts["sparse_adagrad"] == MODE_SIM_ITERS, counts
+    assert all(math.isfinite(x) for x in out["train_loss"]), out["train_loss"]
+    emit({"phase": "mode_path", "runner": "sim", "schedule": [list(x) for x in MODE_SCRIPT],
+          "iters": MODE_SIM_ITERS, "mode_events": [list(x) for x in out["mode_events"]],
+          "sync_count": out["sync_count"], "easgd_round_launches": counts["easgd_round"],
+          "host_replay": {"sync_count": want_syncs, "easgd_round": want_k3},
+          "ms_per_iter": ms, "loss_last": out["train_loss"][-1]})
+    del sim, st, out
+    release(torch)
+
+
 def main() -> int:
     import torch
 
@@ -1771,6 +2182,9 @@ def main() -> int:
           "launches": launches, "supervision_events": len(out["supervision_events"]),
           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
     rows["easgd_pair"]["launches"] = launches["easgd_pair"]
+    # this card's busy pace of one trainer in each mode: the straggler
+    # phase's sleep is set from it
+    paces = {"shadow": sum(out["per_trainer_eps_busy"]) / R}
     for k in ("embedding_bag", "sparse_adagrad"):
         rows[k]["launches_threaded"] = launches[k]
     rows["sparse_adagrad_threaded_shape"]["launches"] = launches["sparse_adagrad"]
@@ -1787,13 +2201,16 @@ def main() -> int:
     fr = ThreadedShadowRunner(cfg, SyncConfig(mode="fixed_rate", gap=5), n_trainers=R,
                               batch_size=B, optimizer=optim.adagrad(0.02),
                               n_emb_shards=N_SHARDS, device="cuda")
+    fr.warmup()
     reset_counts(ops.values())
     out_fr = fr.run(10)
+    paces["fixed_rate"] = sum(out_fr["per_trainer_eps_busy"]) / R
     assert all(math.isfinite(x) for x in out_fr["train_loss"]), out_fr["train_loss"]
     assert out_fr["sync_count"] == R * (10 // 5), out_fr["sync_count"]
     assert easgd_pair_flat_op.launches == R * (10 // 5), easgd_pair_flat_op.launches
     emit({"phase": "threaded_main_path", "mode": "fixed_rate", "iters_per_trainer": 10,
           "sync_count": out_fr["sync_count"], "eps": out_fr["eps"],
+          "per_trainer_eps_busy": out_fr["per_trainer_eps_busy"],
           "train_loss": out_fr["train_loss"], "easgd_pair_launches": easgd_pair_flat_op.launches})
     del fr, out_fr
     release(torch)
@@ -1906,6 +2323,14 @@ def main() -> int:
           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
     del sim_u, st_u
     release(torch)
+
+    # 6c · step pipelining, the straggler policy and mode switching
+    full_tables = pipeline_phase(torch, cfg, all_ops, path_counts)
+    policy_mode_phase(torch, cfg, all_ops, path_counts, paces, full_tables)
+    del full_tables
+    for k in ops:  # K1-K4's launches on this slice's paths
+        rows[k]["launches_pipeline_path"] = {p: c[k] for p, c in path_counts.items()
+                                             if p.startswith(("pipeline", "policy", "mode"))}
 
     # 7 · the serving path, with the DLRM state released first
     alloc, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()

@@ -37,9 +37,13 @@ both: the sim puts its packed table behind one ``CachedStore`` for a run,
 the threaded runner one per PS. ``HogwildSim.save_state``/``load_state``
 write and read the JAX package's checkpoint format (``checkpoint/``).
 
-Not yet ported: in ``HogwildSim`` step pipelining and mode switching; in
-``ThreadedShadowRunner`` step pipelining, the straggler policy and the mode
-controller. Passing their options raises.
+Step pipelining (``pipeline=``, ``core/pipeline.py``) runs in both: a
+stager thread on its own CUDA stream looks up batch k+1 while batch k's
+dense pass runs, behind a hazard check that keeps the trajectory bitwise
+the serial one. The sim takes a scripted or closed-loop mode trace
+(``mode_schedule=``, ``core/modeswitch.py``) and a ``StragglerSchedule``
+(``core/scheduler.py``) as its membership schedule; the threaded runner
+takes the live straggler policy and mode controller.
 """
 from __future__ import annotations
 
@@ -56,9 +60,12 @@ from repro_torch import checkpoint as ckpt
 from repro_torch import tree as T
 from repro_torch.core import algorithms, streams
 from repro_torch.core import sync as S
-from repro_torch.core.elp import EPSMeter, SlotEPS
+from repro_torch.core.elp import EPSMeter, SlotEPS, median_eps
 from repro_torch.core.flatspace import FlatSpace
 from repro_torch.core.membership import FaultSpec, Membership, MembershipSchedule
+from repro_torch.core.modeswitch import ModeController, ModeDecision, ModeSchedule
+from repro_torch.core.pipeline import PipelineConfig, PipelineStats, StepPipeline
+from repro_torch.core.scheduler import StragglerPolicy
 from repro_torch.core.supervision import Supervisor, SupervisorConfig
 from repro_torch.data import ctr
 from repro_torch.embeddings import shards as emb_shards
@@ -107,15 +114,26 @@ class HogwildSim:
         membership=None,
         schedule=None,
         cache=None,
-        pipeline=None,
+        pipeline: Optional[PipelineConfig] = None,
         mode_schedule=None,
         device: Optional[str] = None,
     ):
-        unported = dict(pipeline=pipeline, mode_schedule=mode_schedule)
-        for name, value in unported.items():
-            if value is not None:
-                raise NotImplementedError(f"HogwildSim({name}=...) is not yet ported")
         self.device = resolve_device(device)
+        # Runtime mode switching: a deterministic per-iteration mode trace
+        # (scripted [(iteration, mode)] switch points or a closed-loop
+        # ControllerModeSchedule) moves the whole cohort between shadow and
+        # fixed_rate at iteration boundaries, with the handoff in run().
+        # Without one the sim runs the single-mode path unchanged.
+        if mode_schedule is not None and not isinstance(mode_schedule, ModeSchedule):
+            mode_schedule = ModeSchedule(mode_schedule, start_mode=sync_cfg.mode)
+        if mode_schedule is not None and mode_schedule.start_mode != sync_cfg.mode:
+            raise ValueError(
+                f"mode_schedule starts in {mode_schedule.start_mode!r} but sync_cfg.mode is "
+                f"{sync_cfg.mode!r}; construct them to agree")
+        self.mode_schedule = mode_schedule
+        # Step pipelining: a StepPipeline stages batch k+1's lookup while
+        # batch k's dense pass runs, hazard-checked over the peeked stream.
+        self.pipeline = pipeline.validate() if pipeline is not None else None
         # Tiered embedding cache: the packed table moves behind one
         # CachedStore for a run; merged() gives the canonical tables back at
         # its end, so save, evaluation and resume never see the cache.
@@ -176,19 +194,30 @@ class HogwildSim:
         return w, opt_state, loss.mean(1), g_pooled
 
     def _train_iter(self, st: SimState, batch, active: Optional[np.ndarray] = None,
-                    store: Optional[CachedStore] = None, gids: Optional[np.ndarray] = None):
-        """One iteration. With ``store`` (a cached run) the lookup and the
-        update go through the hot tier over ``gids``, the batch's packed
-        global ids on the host: the same two kernel launches, bitwise."""
+                    store: Optional[CachedStore] = None, gids: Optional[np.ndarray] = None,
+                    pooled: Optional[torch.Tensor] = None,
+                    on_dense: Optional[Callable[[], None]] = None):
+        """One iteration: lookup, dense pass, sparse update. With ``store``
+        (a cached run) the lookup and the update go through the hot tier
+        over ``gids``, the batch's packed global ids on the host: the same
+        two kernel launches, bitwise. ``pooled``: a lookup the step pipeline
+        staged (None: look up here; a staged cached lookup's frequency count
+        is taken here); ``on_dense`` runs after the dense dispatch and before
+        the sparse update (the pipeline's ``stage``)."""
         cfg, spec = self.cfg, self.spec
         F, m, d = cfg.n_sparse_features, cfg.multi_hot, cfg.embedding_dim
         idx = batch["sparse"].reshape(-1, F, m)
-        pooled = emb.lookup(st.emb_state, spec, idx) if store is None else store.lookup(gids)
+        if pooled is None:
+            pooled = emb.lookup(st.emb_state, spec, idx) if store is None else store.lookup(gids)
+        elif store is not None:
+            store.count(gids)
         pooled = pooled.reshape(self.R, self.M, self.B, F, d)
         w = self.flat.unpack_stack(st.w_stack) if self.engine == "flat" else st.w_stack
         w, st.opt_stack, loss, g_pooled = self._dense_core(w, st.opt_stack, pooled, batch,
                                                            active)
         st.w_stack = self.flat.pack_stack(w) if self.engine == "flat" else w
+        if on_dense is not None:
+            on_dense()
         # Hogwild on the single embedding copy: one fused, in-place
         # scatter-Adagrad launch with every trainer's and thread's gradient.
         if store is None:
@@ -258,14 +287,16 @@ class HogwildSim:
                 launch_active=launch_active)
         return st
 
-    def _apply_membership_event(self, st: SimState, kind: str, slot: int) -> SimState:
+    def _apply_membership_event(self, st: SimState, kind: str, slot: int,
+                                reason: str = "") -> SimState:
         """One schedule transition, at an iteration boundary. A join
         bootstraps through the algorithm's ``on_join`` hook (the live mean,
         or EASGD's PS plane) with a fresh optimizer slot; a leave or fail
-        dispatches ``on_leave``. Nothing reallocates."""
+        dispatches ``on_leave``. Nothing reallocates. ``reason`` goes into
+        the membership log (a ``StragglerSchedule`` demotion's provenance)."""
         sc, fs = self.sync_cfg, self.flat
         if kind in ("fail", "leave"):
-            getattr(self.membership, kind)(slot)
+            getattr(self.membership, kind)(slot, reason=reason)
             if self.engine == "flat":
                 st.algo_state = self.algo.on_leave_flat(st.algo_state, slot, sc, fs)
             else:
@@ -274,7 +305,7 @@ class HogwildSim:
         if kind != "join":
             raise ValueError(f"unknown membership event kind {kind!r}")
         donors = self.membership.active_mask()  # before the join
-        self.membership.join(slot)
+        self.membership.join(slot, reason=reason)
         if donors.any():  # no live donors: keep the slot's current weights
             if self.engine == "flat":
                 st.w_stack, st.algo_state = self.algo.on_join_flat(
@@ -289,99 +320,211 @@ class HogwildSim:
         self.membership.activate(slot)
         return st
 
+    def _stager(self, st: SimState, store: Optional[CachedStore], end: int,
+                gids_of: Callable[[int], np.ndarray]):
+        """The step pipeline of one run, and the stager's CUDA stream (None on
+        the CPU). The stager makes batch ``it`` with ``make_batch`` on its
+        own stream and takes its rows from the ids the step will look up and
+        update: the batch's own ids uncached, the host ids ``gids_of(it)``
+        cached (the memo the prefetch horizon reads, so each batch's ids are
+        drawn once). It looks the batch up on its stream after waiting on the
+        event ``make_ctx`` recorded on this thread's stream at ``stage``
+        time; the batch and the pooled plane go back as
+        ``streams.Published``."""
+        dev, spec = self.device, self.spec
+        F, m = self.cfg.n_sparse_features, self.cfg.multi_hot
+        stream = streams.new_stream(dev)
+        if stream is not None:  # the tables (hot tier) are read on its stream
+            held = store.tensors() if store is not None else list(st.emb_state.values())
+            for x in held:
+                x.record_stream(stream)
+
+        def prepare(it: int) -> Dict[str, Any]:
+            with streams.on(stream):
+                b = self.make_batch(it)
+                ready = streams.record(dev)
+                gids = (gids_of(it) if store is not None else
+                        b["sparse"].cpu().numpy().reshape(-1, F, m) + spec.offsets[None, :, None])
+            return {"rows": [np.unique(gids)], "batch": streams.Published(b, ready),
+                    "gids": gids}
+
+        def stage_fn(s: int, it: int, prep: Dict[str, Any], ctx) -> streams.Published:
+            state, fence = ctx
+            with streams.on(stream):
+                streams.wait(fence)  # every update of a batch before the window
+                if store is None:
+                    idx = prep["batch"].value["sparse"].reshape(-1, F, m)
+                    pooled = emb.lookup(state, spec, idx)
+                else:
+                    pooled = state.lookup(prep["gids"], staged=True)
+                return streams.publish(pooled)
+
+        def make_ctx():
+            return (store if store is not None else st.emb_state), streams.record(dev)
+
+        pipe = StepPipeline(self.pipeline, 1, prepare=prepare, stage_fn=stage_fn,
+                            make_ctx=make_ctx, end=end, name="sim-pipe")
+        return pipe, stream
+
     def run(self, n_iters: int, *, log_every: int = 0,
             on_iter: Optional[Callable[[int, float], None]] = None,
             state: Optional[SimState] = None) -> Dict[str, Any]:
         """Train ``n_iters`` iterations. ``state`` resumes a prior run: the
         iteration numbering (the batch stream, the shadow clocks, the
-        membership schedule) continues from ``state.step``."""
+        membership and mode schedules) continues from ``state.step``."""
         st = self.init_state() if state is None else state
         sc = self.sync_cfg
         elastic = self._elastic
         store: Optional[CachedStore] = None
         la = 0
+        # batch ids on the host, shared by the prefetch horizon, the stager
+        # and the cached step (guarded-by: gid_lock)
         gid_memo: Dict[int, np.ndarray] = {}
+        gid_lock = threading.Lock()
         if self.cache is not None:
             store = CachedStore(st.emb_state, self.cache)
             st.emb_state = None
-            la = self.cache.effective_lookahead()
+            # the prefetch horizon covers at least the staged lookups
+            la = self.cache.effective_lookahead(self.pipeline.depth if self.pipeline else 1)
         offs = self.spec.offsets[None, :, None]
 
         def _gids(it: int) -> np.ndarray:
             # the peek: batch ``it``'s packed global ids, drawn again on the
-            # host (the stream is a pure function of the iteration)
-            if it not in gid_memo:
+            # host (the stream is a pure function of the iteration), once
+            with gid_lock:
+                g = gid_memo.get(it)
+            if g is None:
                 F, m = self.cfg.n_sparse_features, self.cfg.multi_hot
                 ids = ctr.sparse_ids(self.cfg, self.seed, it, self.B * self.R * self.M)
-                gid_memo[it] = ids.reshape(-1, F, m) + offs
-            return gid_memo[it]
+                with gid_lock:
+                    g = gid_memo.setdefault(it, ids.reshape(-1, F, m) + offs)
+            return g
 
         losses: List[float] = []
         replica_losses: List[np.ndarray] = []
         sync_count = 0
         examples = 0
         start = int(st.step)
+        # one lookup unit (the packed table or its store): n_shards=1
+        pipe, stager = (self._stager(st, store, start + n_iters, _gids)
+                        if self.pipeline is not None else (None, None))
         # (land_t, snapshot, fired_mask, launch_active)
         pending: Optional[Tuple[int, Any, np.ndarray, Optional[np.ndarray]]] = None
-        for t in range(start, start + n_iters):
-            if elastic and self.schedule is not None:
-                for kind, slot in self.schedule.events_at(t):
-                    st = self._apply_membership_event(st, kind, slot)
-            active = self.membership.active_mask() if elastic else None
-            gids = None
-            if store is not None:
-                # one prefetch round covering [t, t + K) at the boundary
-                if la:
-                    store.prefetch([_gids(t + j) for j in range(la)])
-                gids = _gids(t)
-                for k in [k for k in gid_memo if k <= t]:
-                    del gid_memo[k]
-            loss = self._train_iter(st, self.make_batch(t), active, store, gids)
-            # float()/numpy() synchronise, as float() does in the reference
-            if elastic:
-                lv = loss.detach().cpu().numpy()
-                replica_losses.append(lv)
-                # an all-dead cohort trains nothing: nan, not a mean of []
-                losses.append(float(lv[active].mean()) if active.any() else float("nan"))
-                examples += int(active.sum()) * self.M * self.B
-            else:
-                losses.append(float(loss))
-                examples += self.R * self.M * self.B
-            if sc.mode == "fixed_rate":
-                if (t + 1) % sc.gap == 0 and (active is None or active.any()):
-                    st = self._apply_sync(st, None, None, active=active)
-                    sync_count += self.R if active is None else int(active.sum())
-            else:  # shadow: land first, then launch
-                if pending is not None and t + 1 >= pending[0]:
-                    _, snap, mask, launch_active = pending
-                    # the landing reads the CURRENT membership: a slot that
-                    # died in flight is skipped (an all-dead cohort drops it)
-                    if active is None or active.any():
-                        st = self._apply_sync(st, snap, mask, active=active,
-                                              launch_active=launch_active)
-                        sync_count += int(mask.sum())
-                    pending = None
-                if pending is None:
-                    mask = self._shadow_schedule(t + 1)
-                    if elastic:
-                        mask = mask & active  # a dead slot's clock never fires
-                    if mask.any():
-                        if sc.delay == 0:
-                            # lands this iteration; no training step intervenes,
-                            # so the pytree engine needs no deep copy
-                            snap = (self._launch_snapshot(st, mask, active)
-                                    if self.engine == "flat" else st.w_stack)
-                            st = self._apply_sync(st, snap, mask, active=active,
-                                                  launch_active=active)
-                            sync_count += int(mask.sum())
+        # Mode switching: ``cur_mode`` is the cohort's mode; ``fr_anchor``
+        # aligns the barrier cadence to the catch-up sync that opened a
+        # fixed_rate phase, ``shadow_base`` seeds the staggered shadow clocks
+        # from the last global sync (``last_global_sync``). All stay 0
+        # without a switch, so a schedule-free run is the single-mode path.
+        msched = self.mode_schedule
+        cur_mode = sc.mode
+        if msched is not None and start > 0:
+            cur_mode = msched.mode_at(start - 1)  # the mode already in effect
+        mode_events: List[Tuple[int, str, str]] = []
+        last_global_sync = fr_anchor = shadow_base = 0
+        try:
+            for t in range(start, start + n_iters):
+                if elastic and self.schedule is not None:
+                    # a StragglerSchedule yields (kind, slot, reason)
+                    evs = list(self.schedule.events_at(t))
+                    if evs and pipe is not None:
+                        pipe.drain()  # staged lookups predate the event
+                    for ev in evs:
+                        st = self._apply_membership_event(st, *ev)
+                active = self.membership.active_mask() if elastic else None
+                if msched is not None:
+                    mode = msched.mode_at(t)
+                    if mode != cur_mode:
+                        # the handoff, at the iteration boundary: staged
+                        # lookups predate it
+                        if pipe is not None:
+                            pipe.drain()
+                        if mode == "fixed_rate":
+                            # shadow -> fixed_rate: drop the in-flight launch
+                            # and run one foreground catch-up sync, so stale
+                            # deltas merge before the first barrier step
+                            pending = None
+                            if active is None or active.any():
+                                st = self._apply_sync(st, None, None, active=active)
+                                sync_count += self.R if active is None else int(active.sum())
+                            last_global_sync = fr_anchor = t
                         else:
-                            pending = (t + 1 + sc.delay, self._launch_snapshot(st, mask, active),
-                                       mask, active)
-            st.step = t + 1
-            if on_iter:
-                on_iter(t, losses[-1])
-            if log_every and (t + 1) % log_every == 0:
-                print(f"iter {t+1}: loss {np.mean(losses[-log_every:]):.5f}")
+                            # fixed_rate -> shadow: the shadow clocks resume
+                            # from the last global sync
+                            shadow_base = last_global_sync
+                        mode_events.append((t, cur_mode, mode))
+                        cur_mode = mode
+                staged = prep = None
+                if pipe is not None:
+                    staged, prep = pipe.consume(t)
+                batch = streams.consume(prep["batch"]) if prep is not None else self.make_batch(t)
+                pooled = (streams.consume(staged[0])
+                          if staged is not None and staged[0] is not None else None)
+                gids = None
+                if store is not None:
+                    # one prefetch round covering [t, t + K) at the boundary
+                    if la:
+                        store.prefetch([_gids(t + j) for j in range(la)])
+                    gids = _gids(t)
+                    with gid_lock:
+                        for k in [k for k in gid_memo if k <= t]:
+                            del gid_memo[k]
+                loss = self._train_iter(
+                    st, batch, active, store, gids, pooled,
+                    on_dense=(lambda: pipe.stage(t)) if pipe is not None else None)
+                # float()/numpy() synchronise, as float() does in the reference
+                if elastic:
+                    lv = loss.detach().cpu().numpy()
+                    replica_losses.append(lv)
+                    # an all-dead cohort trains nothing: nan, not a mean of []
+                    losses.append(float(lv[active].mean()) if active.any() else float("nan"))
+                    examples += int(active.sum()) * self.M * self.B
+                else:
+                    losses.append(float(loss))
+                    examples += self.R * self.M * self.B
+                if cur_mode == "fixed_rate":
+                    if (t + 1 - fr_anchor) % sc.gap == 0 and (active is None or active.any()):
+                        st = self._apply_sync(st, None, None, active=active)
+                        sync_count += self.R if active is None else int(active.sum())
+                        last_global_sync = t + 1
+                else:  # shadow: land first, then launch
+                    if pending is not None and t + 1 >= pending[0]:
+                        _, snap, mask, launch_active = pending
+                        # the landing reads the CURRENT membership: a slot that
+                        # died in flight is skipped (an all-dead cohort drops it)
+                        if active is None or active.any():
+                            st = self._apply_sync(st, snap, mask, active=active,
+                                                  launch_active=launch_active)
+                            sync_count += int(mask.sum())
+                        pending = None
+                    if pending is None:
+                        mask = self._shadow_schedule(t + 1 - shadow_base)
+                        if elastic:
+                            mask = mask & active  # a dead slot's clock never fires
+                        if mask.any():
+                            if sc.delay == 0:
+                                # lands this iteration; no training step
+                                # intervenes, so the pytree engine needs no
+                                # deep copy
+                                snap = (self._launch_snapshot(st, mask, active)
+                                        if self.engine == "flat" else st.w_stack)
+                                st = self._apply_sync(st, snap, mask, active=active,
+                                                      launch_active=active)
+                                sync_count += int(mask.sum())
+                            else:
+                                pending = (t + 1 + sc.delay,
+                                           self._launch_snapshot(st, mask, active), mask, active)
+                st.step = t + 1
+                if on_iter:
+                    on_iter(t, losses[-1])
+                if log_every and (t + 1) % log_every == 0:
+                    print(f"iter {t+1}: loss {np.mean(losses[-log_every:]):.5f}")
+        finally:
+            if pipe is not None:
+                # quiesce the stager before the merge below (a staged lookup
+                # still running would race the hot tier's drain)
+                pipe.close()
+                if stager is not None:
+                    stager.synchronize()
         if store is not None:
             st.emb_state = store.merged()  # the canonical tables, as uncached
         # replica-iterations actually trained (dead slots do not count)
@@ -395,9 +538,15 @@ class HogwildSim:
         }
         if store is not None:
             out["cache_stats"] = store.stats.as_dict()
+        if pipe is not None:
+            out["pipeline_stats"] = pipe.stats.as_dict()
         if elastic:
             out["replica_losses"] = np.stack(replica_losses)
             out["membership_events"] = list(self.membership.events)
+        if msched is not None:
+            # (iteration, from_mode, to_mode) of each handoff this run applied
+            out["mode_events"] = mode_events
+            out["mode"] = cur_mode
         return out
 
     def replica_params(self, st: SimState, i: int) -> Tree:
@@ -549,10 +698,26 @@ class ThreadedShadowRunner:
     each live trainer's next batches. ``cache_stats`` sums the stores'
     counters.
 
-    Not yet ported: ``pipeline``, ``straggler_policy`` and
-    ``mode_controller`` raise. The result dict keeps their keys at their
-    defaults (``pipeline_stats={}``, ``mode`` the configured mode, no
-    transitions)."""
+    Step pipelining (``pipeline=``): each trainer owns a ``StepPipeline``
+    whose stager thread runs on a CUDA stream of its own, built before the
+    run starts so ``share_with`` records the shard tensors on it. A staged
+    per-shard lookup waits on an event the trainer recorded on its stream
+    at ``stage`` time (after its dense dispatch, before its sparse updates)
+    and returns its plane, and the batch it generated, as
+    ``streams.Published``; the trainer consumes them, then looks up
+    serially the shards that were not staged.
+
+    The straggler policy (``straggler_policy=``) demotes and re-admits
+    slots from their busy-clock pace each shadow round (in fixed_rate from
+    a monitor thread, on a stream of its own), and the supervisor's tick
+    backs it up. A demotion's leave hook runs where it is decided (its
+    algorithm state goes out as ``streams.Published``); a re-admission is
+    carried out by the slot's own trainer at the top of its next
+    iteration, on its stream, where its new plane and optimizer state are
+    read. The mode controller (``mode_controller=``) moves the whole
+    cohort between shadow and fixed_rate from the pace dispersion: a run
+    with one keeps both the barrier and the shadow thread, and a switch to
+    fixed_rate runs one foreground catch-up round first."""
 
     def __init__(
         self,
@@ -569,24 +734,27 @@ class ThreadedShadowRunner:
         fault_spec: Optional[FaultSpec] = None,
         membership: Optional[Membership] = None,
         eps_window_s: float = 2.0,
-        straggler_policy=None,
+        straggler_policy: Optional[StragglerPolicy] = None,
         supervise: bool = True,
         supervisor_config: Optional[SupervisorConfig] = None,
         ps_snapshot_every: int = 2,
         shard_retry: Optional[emb_shards.ShardRetryPolicy] = None,
         cache=None,
-        pipeline=None,
-        mode_controller=None,
+        pipeline: Optional[PipelineConfig] = None,
+        mode_controller: Optional[ModeController] = None,
         device: Optional[str] = None,
     ):
-        unported = dict(pipeline=pipeline, straggler_policy=straggler_policy,
-                        mode_controller=mode_controller)
-        for name, value in unported.items():
-            if value is not None:
-                raise NotImplementedError(f"ThreadedShadowRunner({name}=...) is not yet ported")
         self.device = resolve_device(device)
         self.cache: Optional[CacheConfig] = cache.validate() if cache is not None else None
         self.cfg, self.sync_cfg = cfg, sync_cfg.validate()
+        # the mode controller may move the cohort between shadow and
+        # fixed_rate mid-run; the run starts in sync_cfg.mode
+        self.mode_ctl = mode_controller
+        if mode_controller is not None and mode_controller.mode != sync_cfg.mode:
+            raise ValueError(
+                f"mode_controller starts in {mode_controller.mode!r} but sync_cfg.mode is "
+                f"{sync_cfg.mode!r}; construct them to agree")
+        self.pipeline = pipeline.validate() if pipeline is not None else None
         self.engine = sync_cfg.engine
         self.algo = algorithms.get(sync_cfg.algo)
         self.R, self.B = n_trainers, batch_size
@@ -597,6 +765,12 @@ class ThreadedShadowRunner:
         # Fault-injection harness + elastic membership: slots with a join_at
         # schedule start dead and bootstrap mid-run.
         self.fault = (fault_spec or FaultSpec()).validate(n_trainers)
+        # the closed-loop straggler controller: evaluated each shadow round,
+        # or by a monitor thread in static fixed_rate (no shadow thread)
+        if straggler_policy is not None and straggler_policy.n_slots != n_trainers:
+            raise ValueError(f"straggler_policy watches {straggler_policy.n_slots} slots, "
+                             f"runner has {n_trainers} trainers")
+        self.policy = straggler_policy
         if membership is None:
             membership = Membership.from_mask(
                 [i not in self.fault.join_at for i in range(n_trainers)])
@@ -627,9 +801,10 @@ class ThreadedShadowRunner:
                 raise ValueError(f"ps_fail_at names shard {s}, but the plan has "
                                  f"{self.n_emb_shards} embedding shards")
         sync_chaos = self.fault.sync_crash_at is not None or self.fault.sync_stall_at is not None
-        if sync_chaos and self.sync_cfg.mode == "fixed_rate":
-            raise ValueError("sync_crash_at / sync_stall_at target the shadow thread; "
-                             "mode='fixed_rate' has none")
+        if sync_chaos and self.sync_cfg.mode == "fixed_rate" and self.mode_ctl is None:
+            raise ValueError("sync_crash_at / sync_stall_at target the shadow thread; static "
+                             "mode='fixed_rate' has none (auto-mode runs, with a "
+                             "mode_controller, always keep one)")
         if (sync_chaos or self.fault.ps_fail_at) and not self.supervise:
             raise ValueError("FaultSpec injects sync/PS chaos, but supervise=False: the "
                              "supervisor is both the injection clock and the recovery path")
@@ -742,6 +917,47 @@ class ThreadedShadowRunner:
             self.algo_state = streams.Published(new_state, ev)
         self.opt_states[i] = self.opt.init(self._w0)
 
+    def _merged_pipe_stats(self) -> Dict[str, Any]:
+        """The per-trainer pipeline counters (harvested in each trainer's
+        ``finally``), summed after the join."""
+        total = PipelineStats()
+        for st in self._pipe_stats:
+            if st is not None:
+                total.add(st)
+        return total.as_dict()
+
+    def _trainer_pipeline(self, i: int, n_iters: int, stream,
+                          peek: Callable[[int], np.ndarray]) -> StepPipeline:
+        """Trainer ``i``'s step pipeline over the PS shards. The trainer's
+        stream of batches is pure in (seed + i, iteration), so the stager
+        makes batch ``it`` with ``gen_batch`` on its own CUDA ``stream``; its
+        rows are the batch's own ids uncached, and cached the host ids
+        ``peek(it)`` that the prefetch horizon reads (one draw). The hazard
+        check is self read-after-write only (the other trainers' writes are
+        the Hogwild race the serial path has too). A membership transition
+        or a PS fail/recover between staging and use drains the value."""
+        dev, plan, cached = self.device, self.plan, self.cache is not None
+
+        def prepare(it: int) -> Dict[str, Any]:
+            with streams.on(stream):
+                b = ctr.gen_batch(self.cfg, self.teacher, self.seed + i, it, self.B)
+                ready = streams.record(dev)
+                sp = peek(it) if cached else b["sparse"].cpu().numpy()
+            rows = [np.unique(emb_shards._route_np(plan, s, sp)) for s in range(plan.n_shards)]
+            return {"rows": rows, "batch": streams.Published(b, ready), "sparse": sp}
+
+        def stage_fn(s: int, it: int, prep: Dict[str, Any], ctx) -> streams.Published:
+            embs, fence = ctx
+            with streams.on(stream):
+                streams.wait(fence)  # this trainer's updates of every earlier batch
+                ids = prep["sparse"] if cached else prep["batch"].value["sparse"]
+                return streams.publish(embs.lookup_shard(s, ids, staged=True))
+
+        return StepPipeline(self.pipeline, plan.n_shards, prepare=prepare, stage_fn=stage_fn,
+                            make_ctx=lambda: (self.emb, streams.record(dev)),
+                            epoch=lambda: self.membership.epoch,
+                            shard_token=self.emb.incarnation, end=n_iters, name=f"pipe-{i}")
+
     def run(self, iters_per_trainer: int) -> Dict[str, Any]:
         dev = self.device
         gen = torch.Generator().manual_seed(self.seed)
@@ -768,7 +984,15 @@ class ThreadedShadowRunner:
         self.algo_state = streams.Published(algo_state, init_event)  # guarded-by: _state_lock
         trainer_streams = [streams.new_stream(dev) for _ in range(self.R)]
         shadow_stream, tick_stream = streams.new_stream(dev), streams.new_stream(dev)
-        self.emb.share_with(trainer_streams + [shadow_stream, tick_stream])
+        # the monitor (the policy in static fixed_rate) may demote a slot:
+        # its leave hook runs on the monitor's stream
+        monitor_stream = streams.new_stream(dev) if self.policy is not None else None
+        # each trainer's stager looks the shards up on a stream of its own;
+        # made here so the shards are recorded on it before any launch
+        stager_streams = ([streams.new_stream(dev) for _ in range(self.R)]
+                          if self.pipeline is not None else [])
+        self.emb.share_with(trainer_streams + [shadow_stream, tick_stream, monitor_stream]
+                            + stager_streams)
         self.done = threading.Event()
         self.examples = 0  # guarded-by-writes: ex_lock
         self.sync_count = 0  # guarded-by-writes: _sync_lock
@@ -792,13 +1016,33 @@ class ThreadedShadowRunner:
         # per-slot meters on each trainer's BUSY clock (barrier waits excluded)
         self.slot_eps = SlotEPS(self.R, window_s=self.eps_window_s)
         self._alive = [True] * self.R  # guarded-by-writes: _state_lock
+        # the policy's pending re-admissions, each taken by its slot's trainer
+        self._readmit_reason: List[Optional[str]] = [None] * self.R  # guarded-by: _state_lock
         self.iter_count = [0] * self.R  # slot-owned counters
         trainer_wall = [0.0] * self.R
+        # per-trainer step pipelines and their stats (slot-owned cells)
+        self._pipes: List[Optional[StepPipeline]] = [None] * self.R
+        self._pipe_stats: List[Optional[PipelineStats]] = [None] * self.R
         losses: List[List[float]] = [[] for _ in range(self.R)]
+        # quality signals: each slot's loss EMA (the policy's loss
+        # divergence, the controller's quality skew) and the perf_counter
+        # stamp of its last landed sync (the policy's staleness), written
+        # by the round's publish under _state_lock
+        self._loss_ema = [float("nan")] * self.R
+        self._last_sync_t = [time.perf_counter()] * self.R
         ex_lock = threading.Lock()
-        fr_static = self.sync_cfg.mode == "fixed_rate"
+        auto = self.mode_ctl is not None
+        # static fixed_rate has no shadow thread (a monitor carries the
+        # policy); an auto-mode run always keeps it, as the mode and policy
+        # evaluator even while the barrier owns the rounds
+        fr_static = (not auto) and self.sync_cfg.mode == "fixed_rate"
+        has_fr = fr_static or auto
+        # the cohort's current mode (guarded-by-writes: _fr_cond); moved by
+        # _apply_mode_switch, read by the trainers each iteration
         self._mode = self.sync_cfg.mode
-        if fr_static:
+        # bumped on every handoff: trainers drain their pipelines on seeing it
+        self._mode_gen = 0
+        if has_fr:
             # Foreground sync point: a Condition-based barrier whose party
             # count tracks membership, so a crash shrinks it instead of
             # deadlocking; a straggler still drags EVERYONE (the paper's
@@ -831,8 +1075,22 @@ class ThreadedShadowRunner:
         # trainer are peeked (drawn again on the host, memoized across
         # rounds) and their per-shard rows promoted between rounds. A trainer
         # that outruns the horizon pays a counted synchronous promotion.
-        peek_memo: Dict[Tuple[int, int], np.ndarray] = {}  # guarded-by: prefetch_gate
+        peek_memo: Dict[Tuple[int, int], np.ndarray] = {}  # guarded-by: peek_lock
+        peek_lock = threading.Lock()
         prefetch_gate = threading.Lock()
+
+        def _peek(i: int, it: int) -> np.ndarray:
+            # trainer i's batch ``it`` ids on the host, drawn once for the
+            # prefetch horizon and the stager; entries it trained past go
+            with peek_lock:
+                idx = peek_memo.get((i, it))
+            if idx is None:
+                idx = ctr.sparse_ids(self.cfg, self.seed + i, it, self.B)
+                with peek_lock:
+                    idx = peek_memo.setdefault((i, it), idx)
+                    for k in [k for k in peek_memo if k[1] < self.iter_count[k[0]]]:
+                        del peek_memo[k]
+            return idx
 
         def _prefetch_step() -> None:
             if self.cache is None or self.cache.lookahead == 0:
@@ -847,14 +1105,9 @@ class ThreadedShadowRunner:
                         continue
                     base = self.iter_count[i]
                     for it in range(base, min(base + la, iters_per_trainer)):
-                        idx = peek_memo.get((i, it))
-                        if idx is None:
-                            idx = peek_memo[(i, it)] = ctr.sparse_ids(
-                                self.cfg, self.seed + i, it, self.B)
+                        idx = _peek(i, it)
                         for s in range(self.n_emb_shards):
                             horizons[s].append(emb_shards._route_np(self.plan, s, idx))
-                for k in [k for k in peek_memo if k[1] < self.iter_count[k[0]]]:
-                    del peek_memo[k]  # trained past it
                 for s in range(self.n_emb_shards):
                     store = self.emb.stores[s]
                     if store is not None and self.emb.health[s]:
@@ -882,8 +1135,10 @@ class ThreadedShadowRunner:
                 if self.membership.epoch != epoch or self.algo_state is not state_in:
                     return 0  # membership/algo state moved under the round
                 self.algo_state = streams.Published(new_state, landed)
+                now_sync = time.perf_counter()
                 for k, j in enumerate(ids):
                     self.w[j] = streams.Published(sub[k], landed)
+                    self._last_sync_t[j] = now_sync  # the slot's staleness resets
                 return n
 
         def _fr_ready_locked() -> bool:  # holds-lock: _fr_cond
@@ -944,6 +1199,113 @@ class ThreadedShadowRunner:
             if n:
                 _add_syncs(n)
 
+        def _demote(slot: int, reason: str) -> None:
+            """Policy demotion: active -> dead ("leave", with provenance). The
+            trainer keeps running (its iterations are the probe stream the
+            policy watches for re-admission), but its replica leaves the sync
+            set, its embedding writes stop and it leaves the barrier."""
+            with self._state_lock:
+                if not self.membership.active_mask()[slot]:
+                    return  # crashed or left between observation and action
+                self.membership.leave(slot, reason=reason)
+                self._dispatch_on_leave(slot)
+            if has_fr:
+                _fr_deregister(slot)
+
+        def _readmit(slot: int, reason: str) -> None:
+            """Policy re-admission after probation: the decision is handed to
+            the slot's own trainer, which carries it out at the top of its
+            next iteration (``_take_readmit``), on its own stream, so the
+            bootstrap's weights and fresh optimizer state are made where the
+            trainer reads them."""
+            with self._state_lock:
+                # alive is cleared under this lock when a trainer exits, so a
+                # finished trainer is never resurrected here
+                if self._alive[slot] and self.membership.status(slot) == "dead":
+                    self._readmit_reason[slot] = reason
+
+        def _take_readmit(i: int) -> None:
+            """dead -> joining -> active for slot ``i``, on its trainer's
+            thread and stream: bootstrapped from the live cohort like a fresh
+            join."""
+            with self._state_lock:
+                reason, self._readmit_reason[i] = self._readmit_reason[i], None
+                if reason is None or self.membership.status(i) != "dead":
+                    return
+                self._admit_slot(i, reason=reason)
+            if has_fr:
+                _fr_register(i)
+
+        def _policy_step() -> None:
+            policy = self.policy
+            if policy is None:
+                return
+            now = time.perf_counter()
+            pcfg = policy.config
+            # the quality observations only when their knob is set
+            loss_by = ({i: self._loss_ema[i] for i in range(self.R)}
+                       if pcfg.loss_div_frac is not None else None)
+            stale_by = ({i: now - self._last_sync_t[i] for i in range(self.R)}
+                        if pcfg.staleness_max is not None else None)
+            actions = policy.observe(now, self.slot_eps.eps_by_slot(),
+                                     self.membership.active_mask(), list(self._alive),
+                                     loss_by_slot=loss_by, staleness_by_slot=stale_by)
+            for a in actions:
+                if a.kind == "demote":
+                    _demote(a.slot, a.reason)
+                else:
+                    _readmit(a.slot, a.reason)
+
+        def _quality_skew() -> float:
+            # the live cohort's loss-EMA divergence: max slot EMA over the median
+            active = self.membership.active_mask()
+            vals = [self._loss_ema[i] for i in range(self.R) if active[i] and self._alive[i]]
+            vals = [v for v in vals if v == v and v > 0.0]
+            if len(vals) < 2:
+                return 0.0
+            med = median_eps(vals)
+            return max(vals) / med if med > 0.0 else 0.0
+
+        def _apply_mode_switch(dec: ModeDecision, gen_: Optional[int]) -> None:
+            # One whole-cohort handoff, fenced by the supervisor's generation
+            # token: a replaced shadow incarnation must not run one beside
+            # its replacement (the supervisor's own tick passes None)
+            if gen_ is not None and sup is not None and sup.generation("shadow") != gen_:
+                return
+            if dec.target == "fixed_rate":
+                # shadow -> fixed_rate: one foreground catch-up round BEFORE
+                # the barrier arms, so the first synchronous step starts from
+                # consensus
+                n = _round_over_active()
+                if n:
+                    _add_syncs(n)
+            with self._fr_cond:
+                if self._mode == dec.target:
+                    return  # another switcher already made this handoff
+                active = self.membership.active_mask()
+                arm = dec.target == "fixed_rate"
+                for j in range(self.R):
+                    self._fr_arrived[j] = False
+                    self._fr_registered[j] = bool(arm and self._alive[j] and active[j])
+                # fixed_rate -> shadow: the generation bump drains the
+                # barrier (every parked waiter trains on without a round)
+                self._fr_leader = None
+                self._fr_gen += 1
+                self._mode = dec.target
+                self._mode_gen += 1  # trainers drain their staged lookups
+                self._fr_cond.notify_all()
+            self.membership.note("mode_switch", -1, f"-> {dec.target}: {dec.reason}")
+
+        def _mode_step(gen_: Optional[int]) -> None:
+            ctl = self.mode_ctl
+            if ctl is None:
+                return
+            disp = ModeController.dispersion(self.slot_eps.eps_by_slot(),
+                                             self.membership.active_mask(), list(self._alive))
+            dec = ctl.observe(time.perf_counter(), disp, quality_skew=_quality_skew())
+            if dec is not None:
+                _apply_mode_switch(dec, gen_)
+
         def trainer(i: int):
             try:
                 with streams.on(trainer_streams[i]):
@@ -958,9 +1320,17 @@ class ThreadedShadowRunner:
                         with streams.on(trainer_streams[i]):
                             self._dispatch_on_leave(i)
             finally:
+                # stop the slot's stager (crash and raise exits included) and
+                # harvest its stats before the thread ends
+                pipe = self._pipes[i]
+                if pipe is not None:
+                    pipe.close()
+                    self._pipe_stats[i] = pipe.stats
+                    if stager_streams[i] is not None:
+                        stager_streams[i].synchronize()
                 with self._state_lock:
                     self._alive[i] = False
-                if fr_static:
+                if has_fr:
                     _fr_deregister(i)
                 if sup is not None:
                     sup.deregister(f"trainer-{i}")
@@ -981,16 +1351,27 @@ class ThreadedShadowRunner:
                     time.sleep(0.001)
                 with self._state_lock:
                     self._admit_slot(i)
-                if fr_static:
+                if has_fr:
                     _fr_register(i)
                 n_iters = max(iters_per_trainer - target, 1)
+            pipe = self._pipes[i] = (
+                self._trainer_pipeline(i, n_iters, stager_streams[i], lambda it: _peek(i, it))
+                if self.pipeline is not None else None)
             t_start = time.perf_counter()
             sleep_s = self.fault.straggler_sleep_s.get(i, 0.0)
             sleep_until = self.fault.straggler_until.get(i)
             crash = self.fault.crash_at.get(i)
             boom = self.fault.raise_at.get(i)
+            seen_mode_gen = self._mode_gen
             for it in range(n_iters):
                 _beat(f"trainer-{i}")
+                if self._readmit_reason[i] is not None:
+                    _take_readmit(i)  # the policy re-admitted this slot
+                if pipe is not None and self._mode_gen != seen_mode_gen:
+                    # a mode handoff since the last check: the staged
+                    # lookups predate it (drained on this, the owning, thread)
+                    seen_mode_gen = self._mode_gen
+                    pipe.drain()
                 if boom is not None and it >= boom:
                     raise RuntimeError(f"injected trainer fault at iteration {it}")
                 if crash is not None and it >= crash:
@@ -998,23 +1379,45 @@ class ThreadedShadowRunner:
                         if self.membership.status(i) != "dead":
                             self.membership.fail(i)
                             self._dispatch_on_leave(i)
-                    if fr_static:
+                    if has_fr:
                         _fr_deregister(i)
                     break
                 t_busy = time.perf_counter()
                 if sleep_s and (sleep_until is None or it < sleep_until):
                     time.sleep(sleep_s)  # injected degradation
-                batch = ctr.gen_batch(self.cfg, self.teacher, self.seed + i, it, self.B)
-                if self.cache is not None:
+                staged = prep = None
+                if pipe is not None:
+                    staged, prep = pipe.consume(it)
+                if prep is not None:
+                    batch, sparse_np = streams.consume(prep["batch"]), prep["sparse"]
+                else:
+                    batch = ctr.gen_batch(self.cfg, self.teacher, self.seed + i, it, self.B)
+                    sparse_np = batch["sparse"].cpu().numpy() if self.cache is not None else None
+                if pipe is not None:
+                    # the staged planes where the hazard check allowed it;
+                    # the other shards looked up here, bitwise the same
+                    ids = sparse_np if self.cache is not None else batch["sparse"]
+                    outs = []
+                    for s in range(self.n_emb_shards):
+                        if staged[s] is None:
+                            outs.append(self.emb.lookup_shard(s, ids))
+                        else:
+                            outs.append(streams.consume(staged[s]))
+                            self.emb.count_staged(s, ids)
+                    pooled = self.emb.assemble(outs)
+                elif self.cache is not None:
                     # through the per-PS hot tiers (a row that beat the
                     # prefetch horizon is promoted synchronously, counted)
-                    sparse_np = batch["sparse"].cpu().numpy()
                     pooled = self.emb.cached_lookup(sparse_np)
                 else:
                     # Lock-free read of the shared per-PS tables (Hogwild).
                     pooled = self.emb.lookup(batch["sparse"])
                 w, opt_state, loss, g_pooled = self._train_dense(
                     streams.consume(self.w[i]), self.opt_states[i], pooled, batch)
+                if pipe is not None:
+                    # stage batch it+1.. while this step's dense pass and
+                    # sparse updates run
+                    pipe.stage(it)
                 self.w[i] = streams.publish(w)
                 self.opt_states[i] = opt_state
                 # Lock-free in-place write PER SHARD: writers to different
@@ -1031,6 +1434,8 @@ class ThreadedShadowRunner:
                                                 g_pooled)
                 lv = float(loss)  # waits for this trainer's stream only
                 losses[i].append(lv)
+                prev = self._loss_ema[i]  # slot-owned: the quality signal
+                self._loss_ema[i] = lv if prev != prev else 0.9 * prev + 0.1 * lv
                 self.iter_count[i] = it + 1
                 self.slot_eps.tick(i, time.perf_counter() - t_busy)
                 self.slot_eps.add(i, self.B)
@@ -1038,7 +1443,7 @@ class ThreadedShadowRunner:
                     with ex_lock:
                         self.examples += self.B
                         self.eps_meter.add(self.B)
-                if fr_static and (it + 1) % self.sync_cfg.gap == 0:
+                if has_fr and (it + 1) % self.sync_cfg.gap == 0 and self._mode == "fixed_rate":
                     _fr_sync_point(i)
             trainer_wall[i] = time.perf_counter() - t_start
 
@@ -1065,20 +1470,28 @@ class ThreadedShadowRunner:
                         time.sleep(0.01)
                     continue  # the generation check above retires the zombie
                 _beat("shadow")
-                # One algorithm-owned background round over the live planes:
-                # landings interpolate into the CURRENT state while trainers
-                # keep moving (paper §3.3).
-                n = _round_over_active()
-                if n:
-                    _add_syncs(n)
-                else:
+                if auto and self._mode == "fixed_rate":
+                    # the barrier's leaders own the rounds in fixed_rate; this
+                    # thread idles as the mode and policy evaluator
                     time.sleep(0.001)
+                else:
+                    # One algorithm-owned background round over the live
+                    # planes: landings interpolate into the CURRENT state
+                    # while trainers keep moving (paper §3.3).
+                    n = _round_over_active()
+                    if n:
+                        _add_syncs(n)
+                    else:
+                        time.sleep(0.001)
                 self._shadow_rounds = r + 1
                 # the cache's lookahead prefetch rides between the rounds, and
                 # PS snapshots the shadow cadence (copies on this stream)
                 _prefetch_step()
                 if self._shadow_rounds % self.ps_snapshot_every == 0:
                     self.emb.snapshot_all()
+                # membership and the cohort's mode are re-evaluated each round
+                _policy_step()
+                _mode_step(gen_)
                 if self.sync_sleep_s:
                     time.sleep(self.sync_sleep_s)
 
@@ -1143,11 +1556,27 @@ class ThreadedShadowRunner:
                         s, reason=f"rehydrated from snapshot after {now - t_fail:.2f}s down")
                     self.membership.note("ps_recover", -1,
                                          f"embedding shard {s} rejoined the routing plan")
+            # the backup policy and mode clock: decisions keep flowing while
+            # the thread that normally makes them (the shadow) restarts
+            _policy_step()
+            _mode_step(None)
+
+        def monitor():
+            # static fixed_rate has no shadow thread: the policy gets its own
+            # (a demotion must not wait for the barrier the straggler blocks)
+            with streams.on(monitor_stream):
+                while not self.done.is_set():
+                    _beat("monitor")
+                    _policy_step()
+                    time.sleep(0.02)
 
         sup = Supervisor(self.supervisor_config, tick=_supervision_tick) if self.supervise else None
         self.supervisor = sup
-        threads = [threading.Thread(target=trainer, args=(i,)) for i in range(self.R)]
+        threads = [threading.Thread(target=trainer, args=(i,), name=f"trainer-{i}")
+                   for i in range(self.R)]
         shadow_t = None if fr_static else threading.Thread(target=shadow, args=(0,), daemon=True)
+        monitor_t = (threading.Thread(target=monitor, daemon=True)
+                     if fr_static and self.policy is not None else None)
         # register BEFORE starting anything: a fast-finishing thread must
         # never race its own registration (it deregisters itself on exit)
         if sup is not None:
@@ -1156,11 +1585,15 @@ class ThreadedShadowRunner:
             if shadow_t is not None:
                 sup.register("shadow", shadow_t, restart=_restart_shadow,
                              on_give_up=_sync_give_up)
+            if monitor_t is not None:
+                sup.register("monitor", monitor_t)
         t0 = time.perf_counter()
         for t in threads:
             t.start()
         if shadow_t is not None:
             shadow_t.start()
+        if monitor_t is not None:
+            monitor_t.start()
         if sup is not None:
             sup.start()
         for t in threads:
@@ -1175,6 +1608,7 @@ class ThreadedShadowRunner:
             # clean shutdown: stop watching first, or the supervisor would
             # read the loops' clean exits as deaths
             sup.deregister("shadow")
+            sup.deregister("monitor")
             sup.stop()
             # the tick closes over this run's state and the runner: drop it,
             # so a finished runner is freed when its last name goes (its
@@ -1187,6 +1621,11 @@ class ThreadedShadowRunner:
                     "shadow thread failed to exit within 5s at shutdown "
                     "(sync engine wedged?); proceeding: the returned state "
                     "may race one final background round", RuntimeWarning)
+        if monitor_t is not None:
+            monitor_t.join(timeout=5.0)
+            if monitor_t.is_alive():
+                warnings.warn("monitor thread failed to exit within 5s at shutdown",
+                              RuntimeWarning)
         with streams.on(tick_stream):
             # rehydrate any still-down PS so the returned packed state is the
             # best surviving copy and a subsequent run starts healthy
@@ -1232,15 +1671,16 @@ class ThreadedShadowRunner:
                 for i in range(self.R)],
             "iter_count": list(self.iter_count),
             "membership_events": list(self.membership.events),
-            "policy_transitions": [],
+            "policy_transitions": list(self.policy.transitions) if self.policy is not None else [],
             "supervision_events": list(sup.events) if sup is not None else [],
             "shard_events": list(self.emb.events),
             "dropped_updates": list(self.emb.dropped_updates),
             "stale_lookups": list(self.emb.stale_lookups),
             "cache_stats": self.emb.cache_stats() if self.cache is not None else {},
-            "pipeline_stats": {},
+            "pipeline_stats": self._merged_pipe_stats() if self.pipeline is not None else {},
             "mode": self._mode,
-            "mode_transitions": [],
+            "mode_transitions": (list(self.mode_ctl.transitions)
+                                 if self.mode_ctl is not None else []),
             "sync_rounds": self._shadow_rounds,
             "sync_restarts": sync_restarts,
             "sync_count_at_restart": list(self._sync_count_at_restart),

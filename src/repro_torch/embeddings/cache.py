@@ -147,7 +147,7 @@ class CacheStats:
     bytes_d2h: int = 0
     update_conflicts: int = 0  # kept for the reference's keys: always 0 here
     dropped_updates: int = 0  # kept for the reference's keys: always 0 here
-    staged_lookups: int = 0  # the step pipeline's (not yet ported): always 0 here
+    staged_lookups: int = 0  # lookups dispatched ahead of need by the step pipeline
 
     def as_dict(self) -> Dict[str, int]:
         return dict(self.__dict__)
@@ -191,7 +191,8 @@ class CachedStore:
         hot_row = np.arange(H, dtype=np.int32)
         hot = {k: state[k][:H].detach().to(torch.float32).clone() for k in state}
         self._st = TierState(hot, Routing(slot, hot_row, 0), streams.record(self.device))
-        # the LFU signal: racy increments from trainer threads only shift ranks
+        # the LFU signal (guarded-by: _cond): counted by lookups, aged by
+        # ``prefetch``, read by a migration's plan
         self.freq = np.zeros(self.n_rows, np.float64)
         self._pinned = np.zeros(self.n_rows, bool)  # the prefetch horizon's rows
         self.stats = CacheStats()  # diagnostic counters
@@ -278,25 +279,42 @@ class CachedStore:
             self._cond.notify_all()
 
     # -- hot path ------------------------------------------------------------
-    def lookup(self, idx: np.ndarray) -> torch.Tensor:
+    def lookup(self, idx: np.ndarray, *, staged: bool = False) -> torch.Tensor:
         """Sum-pooled lookup, idx (..., m) local row ids -> (..., d): the
         embedding-bag kernel over the hot tier with ids remapped to slots;
-        a cold row is promoted synchronously first (the counted stall)."""
+        a cold row is promoted synchronously first (the counted stall).
+        ``staged``: dispatched ahead of need by the step pipeline, on the
+        stager's stream (counted in ``staged_lookups``). It takes a reader
+        share and records its stream's launch like any other lookup, so a
+        migration waits for it; its frequency count is left to ``count``,
+        which the step that trains on the batch calls, so the LFU counts
+        keep the serial order."""
         idx = np.asarray(idx)
         rows, counts = np.unique(idx, return_counts=True)
-        self.freq[rows] += counts
         missing = rows[self._st.routing.slot[rows] < 0]
-        self.stats.lookups += 1
-        self.stats.hit_rows += len(rows) - len(missing)
-        if len(missing):
-            self.stats.miss_rows += len(missing)
-            self.stats.stall_lookups += 1
+        with self._cond:  # a staged lookup counts from the stager's thread
+            if not staged:
+                self.freq[rows] += counts
+            self.stats.lookups += 1
+            self.stats.staged_lookups += int(staged)
+            self.stats.hit_rows += len(rows) - len(missing)
+            if len(missing):
+                self.stats.miss_rows += len(missing)
+                self.stats.stall_lookups += 1
         st = self._enter(rows)
         try:
             streams.wait(st.ready)
             return embedding_bag_op(st.hot["table"], self._ids(st.routing.slot[idx]))
         finally:
             self._leave()
+
+    def count(self, idx: np.ndarray) -> None:
+        """The frequency count of a staged lookup of ``idx``, taken by the
+        step that consumes it (after that step's prefetch, as ``lookup``
+        counts in the serial loop)."""
+        rows, counts = np.unique(np.asarray(idx), return_counts=True)
+        with self._cond:
+            self.freq[rows] += counts
 
     def update(self, idx: np.ndarray, g_pooled: torch.Tensor, lr: float) -> bool:
         """Row-sparse Adagrad on the hot tier, in place: idx (..., m) local
@@ -337,7 +355,9 @@ class CachedStore:
                     f"per-batch working set")
             # decayed-LFU victims, unpinned first; lexsort is stable, so ties
             # break by row id (deterministic for the sim)
-            order = np.lexsort((cand, self.freq[cand], self._pinned[cand].astype(np.int8)))
+            with self._cond:
+                freq = self.freq[cand]
+            order = np.lexsort((cand, freq, self._pinned[cand].astype(np.int8)))
             evict_rows = cand[order[:n_evict]]
         evict_slots = routing.slot[evict_rows].astype(np.int32)
         dst = np.concatenate([free[:len(need)], evict_slots])[:len(need)]
@@ -410,7 +430,8 @@ class CachedStore:
         """One prefetch round over the peeked batches' row sets (earliest
         first): ages the LFU counters, pins the horizon against eviction and
         promotes the misses the hot budget can take."""
-        self.freq *= self.cfg.decay
+        with self._cond:
+            self.freq *= self.cfg.decay
         want: List[np.ndarray] = []
         seen = np.zeros(self.n_rows, bool)
         budget = self.hot_budget

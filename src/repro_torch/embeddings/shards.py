@@ -313,12 +313,39 @@ class EmbeddingShards:
         self._done_reading(s, slot)
         return out
 
-    def lookup_shard(self, s: int, idx: torch.Tensor) -> torch.Tensor:
-        """ONE shard's pooled plane for the full (B, F, m) batch: a healthy
-        shard answers from its live table, a failed one from its snapshot."""
+    def incarnation(self, s: int) -> int:
+        """Failure-domain token for shard ``s``: the step pipeline captures
+        it at staging and drains the staged value on any mismatch."""
+        return self.incarnations[s]
+
+    def lookup_shard(self, s: int, idx, *, staged: bool = False) -> torch.Tensor:
+        """ONE shard's pooled plane for the full (B, F, m) batch, callable
+        alone so the step pipeline (``core/pipeline.py``) can stage single
+        shards ahead of need. ``idx``: host ids (numpy) in cached mode, a
+        tensor on the shards' device otherwise. A healthy cached shard
+        answers from its hot tier (``staged`` is counted there), a healthy
+        uncached one from its live table, a failed one from its snapshot."""
+        if self.cache is not None:
+            idx = np.asarray(idx)
+            store = self.stores[s]
+            if store is not None and self.health[s]:
+                return store.lookup(_route_np(self.plan, s, idx), staged=staged)
+            return self._stale_lookup(s, torch.from_numpy(idx).to(self.device))
         if self.health[s]:
             return embedding_bag_op(self.states[s]["table"], _route(self.plan, s, idx))
         return self._stale_lookup(s, idx)
+
+    def count_staged(self, s: int, idx: np.ndarray) -> None:
+        """A cached shard's frequency count of a staged ``lookup_shard``,
+        taken by the step that consumes it (``CachedStore.count``)."""
+        store = self.stores[s]
+        if store is not None:
+            store.count(_route_np(self.plan, s, np.asarray(idx)))
+
+    def assemble(self, outs: List[torch.Tensor]) -> torch.Tensor:
+        """Per-shard planes (bins order) -> (B, F, dim) in feature order, so
+        staged and serial shard planes compose freely."""
+        return assemble(self.plan, outs)
 
     def lookup(self, idx: torch.Tensor) -> torch.Tensor:
         """``shard_lookup`` over the live (or, for a failed shard, snapshot)
@@ -326,7 +353,7 @@ class EmbeddingShards:
         if self.cache is not None:
             raise RuntimeError("cached mode: use cached_lookup (lookup would read the "
                                "full-table copy, not the live hot tier)")
-        return assemble(self.plan, [self.lookup_shard(s, idx) for s in range(self.plan.n_shards)])
+        return self.assemble([self.lookup_shard(s, idx) for s in range(self.plan.n_shards)])
 
     # -- cached hot path -----------------------------------------------------
     def cached_lookup(self, idx: np.ndarray) -> torch.Tensor:
@@ -335,15 +362,7 @@ class EmbeddingShards:
         shard answers from its snapshot."""
         if self.cache is None:
             raise RuntimeError("cached_lookup requires cache= at init")
-        idx = np.asarray(idx)
-        outs = []
-        for s in range(self.plan.n_shards):
-            store = self.stores[s]
-            if store is not None and self.health[s]:
-                outs.append(store.lookup(_route_np(self.plan, s, idx)))
-            else:
-                outs.append(self._stale_lookup(s, torch.from_numpy(idx).to(self.device)))
-        return assemble(self.plan, outs)
+        return self.assemble([self.lookup_shard(s, idx) for s in range(self.plan.n_shards)])
 
     def cached_update(self, s: int, idx: np.ndarray, g_pooled: torch.Tensor, lr: float,
                       eps: float = 1e-8) -> bool:

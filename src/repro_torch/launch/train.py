@@ -16,6 +16,10 @@ fault-injection harness), on the CUDA card unless ``--device cpu`` is given.
   python -m repro_torch.launch.train dlrm --device cpu --tiny --iters 10 --save ck
   python -m repro_torch.launch.train dlrm --device cpu --tiny --iters 10 --trainers 6 \
       --restore ck
+  python -m repro_torch.launch.train dlrm --device cpu --tiny --pipeline-depth 2
+  python -m repro_torch.launch.train dlrm --threaded --device cpu --tiny --trainers 3 \
+      --auto-demote --straggler 2:0.05 --straggler-until 2:20
+  python -m repro_torch.launch.train dlrm --threaded --device cpu --tiny --auto-mode
 
 The flags are the JAX launcher's (``repro/launch/train.py dlrm``);
 ``--algo`` takes every registered sync algorithm (easgd, ma, bmuf,
@@ -24,8 +28,14 @@ as in the JAX launcher, is ignored with ``--threaded``, as are ``--save``
 and ``--restore`` (checkpoints of the sim's state, in the JAX package's
 format; a restore at another ``--trainers`` is elastic). ``--cache-rows N``
 keeps N rows of each embedding store on the device (the tiered cache, both
-runners) and ``--lookahead K`` peeks K queued batches. Those of parts not
-yet ported (pipelining, ``--auto-*``) raise ``NotImplementedError``.
+runners) and ``--lookahead K`` peeks K queued batches. ``--pipeline-depth D``
+(both runners) stages the embedding lookups of D - 1 batches ahead on a
+stager stream, bitwise the serial trajectory. With ``--threaded``,
+``--auto-demote`` lets the straggler policy demote and re-admit slots from
+their measured pace (``--eps-floor``, ``--probation``), and ``--auto-mode``
+starts in fixed_rate and lets the mode controller move the cohort between
+fixed_rate and shadow (``--skew-high``, ``--skew-low``, ``--mode-dwell``,
+``--mode-window``).
 """
 from __future__ import annotations
 
@@ -41,7 +51,10 @@ from repro_torch.configs import dlrm_ctr
 from repro_torch.core import algorithms
 from repro_torch.core.elp import elp
 from repro_torch.core.membership import FaultSpec
+from repro_torch.core.modeswitch import ModeConfig, ModeController
+from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.core.runners import HogwildSim, ThreadedShadowRunner
+from repro_torch.core.scheduler import PolicyConfig, StragglerPolicy
 from repro_torch.core.sync import SyncConfig
 from repro_torch.embeddings.cache import CacheConfig
 
@@ -67,15 +80,6 @@ def _parse_schedule(spec):
     return events or None
 
 
-def _unported(args) -> list:
-    flags = {
-        "--pipeline-depth > 1": args.pipeline_depth > 1,
-        "--auto-demote": args.auto_demote,
-        "--auto-mode": args.auto_mode,
-    }
-    return [name for name, on in flags.items() if on]
-
-
 def _check_flags(args) -> None:
     """Contradictory or misplaced flags fail loudly, as in the JAX launcher."""
     if args.auto_mode and args.mode is not None:
@@ -92,9 +96,13 @@ def _check_flags(args) -> None:
     if args.pipeline_depth < 1:
         raise SystemExit(f"--pipeline-depth must be >= 1, got {args.pipeline_depth}")
     if args.auto_demote and not args.threaded:
-        raise SystemExit("--auto-demote requires --threaded")
+        raise SystemExit(
+            "--auto-demote requires --threaded: the deterministic sim has no real pace to "
+            "measure; script one with core.scheduler.StragglerSchedule instead")
     if args.auto_mode and not args.threaded:
-        raise SystemExit("--auto-mode requires --threaded")
+        raise SystemExit(
+            "--auto-mode requires --threaded: the deterministic sim has no real dispersion "
+            "to measure; script one with core.modeswitch.ControllerModeSchedule instead")
     chaos = (args.sync_crash_at is not None or args.sync_stall_at is not None
              or args.ps_fail_at or args.raise_at)
     if chaos and not args.threaded:
@@ -110,7 +118,14 @@ def _print_cache(cs: dict) -> None:
           f"migrated={(cs['bytes_h2d'] + cs['bytes_d2h']) / 1e6:.2f}MB")
 
 
-def run_threaded(args, cfg, sync_cfg, cache) -> dict:
+def _print_pipeline(ps: dict) -> None:
+    # a stager error degrades the run to serial: always shown, never silent
+    print(f"pipeline: overlap_rate={ps['overlap_rate']:.3f} overlapped={ps['overlapped']} "
+          f"hazard_serialized={ps['hazard_serialized']} drains={ps['drains']} "
+          f"worker_errors={ps['worker_errors']}")
+
+
+def run_threaded(args, cfg, sync_cfg, cache, pipeline) -> dict:
     fault = FaultSpec(
         straggler_sleep_s=_parse_slot_map(args.straggler, float),
         straggler_until=_parse_slot_map(args.straggler_until, int),
@@ -123,18 +138,41 @@ def run_threaded(args, cfg, sync_cfg, cache) -> dict:
         ps_fail_at=_parse_slot_map(args.ps_fail_at, int),
         ps_recover_after_s=args.ps_recover_after,
     )
+    policy = None
+    if args.auto_demote:
+        # hysteresis: re-admission demands more than marginal health
+        # (readmit_frac > eps_floor_frac; above 1.0 means "beat the median")
+        policy = StragglerPolicy(
+            PolicyConfig(eps_floor_frac=args.eps_floor,
+                         readmit_frac=max(args.eps_floor * 1.5, 0.75),
+                         probation_s=args.probation),
+            n_slots=args.trainers)
+    mode_ctl = None
+    if args.auto_mode:
+        # hysteresis bands and a min-dwell keep the cohort from flapping
+        mode_ctl = ModeController(ModeConfig(
+            skew_high=args.skew_high, skew_low=args.skew_low, min_dwell_s=args.mode_dwell,
+            window_s=args.mode_window, start_mode=sync_cfg.mode))
     runner = ThreadedShadowRunner(
         cfg, sync_cfg, n_trainers=args.trainers, batch_size=args.batch_size,
         optimizer=optim.make(args.optimizer, args.lr), seed=args.seed,
-        sync_sleep_s=args.sync_sleep, fault_spec=fault, cache=cache, device=args.device)
+        sync_sleep_s=args.sync_sleep, fault_spec=fault, straggler_policy=policy, cache=cache,
+        pipeline=pipeline, mode_controller=mode_ctl, device=args.device)
     print(f"DLRM {'tiny' if args.tiny else 'full'} threaded on {runner.device}: "
           f"{cfg.n_sparse_features} sparse features, {cfg.n_embedding_rows:,} embedding rows "
           f"on {runner.n_emb_shards} PSs {list(runner.plan.shard_rows)}; "
-          f"ELP = {elp(args.batch_size, 1, args.trainers):,}")
+          f"ELP = {elp(args.batch_size, 1, args.trainers):,}"
+          + (f"; pipeline depth={args.pipeline_depth}" if pipeline else ""))
     runner.warmup()
     out = runner.run(args.iters)
+    if args.auto_mode:
+        print(f"mode: final={out['mode']} switches="
+              + str([(round(t - out["t_start"], 3), f"{frm}->{to}")
+                     for t, frm, to, _ in out["mode_transitions"]]))
     if out["cache_stats"]:
         _print_cache(out["cache_stats"])
+    if out["pipeline_stats"]:
+        _print_pipeline(out["pipeline_stats"])
     print(f"EPS={out['eps']:.0f} (window {out['eps_window']:.0f})  "
           f"avg_sync_gap={out['avg_sync_gap']:.2f} sync_count={out['sync_count']} "
           f"rounds={out['sync_rounds']} iters/trainer={out['iter_count']} "
@@ -157,26 +195,29 @@ def run_threaded(args, cfg, sync_cfg, cache) -> dict:
 
 
 def run_dlrm(args) -> dict:
-    unported = _unported(args)
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not yet ported to repro_torch")
     _check_flags(args)
     cfg = dlrm_ctr.tiny(embedding_dim=args.embedding_dim) if args.tiny else dlrm_ctr.CONFIG
-    sync_cfg = SyncConfig(algo=args.algo, mode=args.mode or "shadow", gap=args.sync_gap,
-                          alpha=args.alpha, delay=args.sync_delay)
+    # an auto-mode run starts in fixed_rate (the homogeneous cohort's choice)
+    # and lets the controller earn shadow from the measured dispersion
+    mode = "fixed_rate" if args.auto_mode else (args.mode or "shadow")
+    sync_cfg = SyncConfig(algo=args.algo, mode=mode, gap=args.sync_gap, alpha=args.alpha,
+                          delay=args.sync_delay)
     # the tiered cache: N rows of each store on the device, K batches peeked
     cache = (CacheConfig(hot_rows=args.cache_rows, lookahead=args.lookahead)
              if args.cache_rows is not None else None)
+    # step pipelining: D - 1 lookups staged ahead behind the hazard check
+    pipeline = PipelineConfig(depth=args.pipeline_depth) if args.pipeline_depth > 1 else None
     if args.threaded:
-        return run_threaded(args, cfg, sync_cfg, cache)
+        return run_threaded(args, cfg, sync_cfg, cache, pipeline)
     sim = HogwildSim(cfg, sync_cfg, n_trainers=args.trainers, n_threads=args.threads,
                      batch_size=args.batch_size, optimizer=optim.make(args.optimizer, args.lr),
                      seed=args.seed, schedule=_parse_schedule(args.membership_schedule),
-                     cache=cache, device=args.device)
+                     cache=cache, pipeline=pipeline, device=args.device)
     print(f"DLRM {'tiny' if args.tiny else 'full'} on {sim.device}: "
           f"{cfg.n_sparse_features} sparse features, {cfg.n_embedding_rows:,} embedding rows; "
           f"ELP = {elp(args.batch_size, args.threads, args.trainers):,}"
-          + (f"; cache hot_rows={args.cache_rows} lookahead={args.lookahead}" if cache else ""))
+          + (f"; cache hot_rows={args.cache_rows} lookahead={args.lookahead}" if cache else "")
+          + (f"; pipeline depth={args.pipeline_depth}" if pipeline else ""))
     if args.restore:
         st0 = sim.load_state(args.restore)
         print(f"elastic restore <- {args.restore} (step {st0.step}, now R={sim.R})")
@@ -191,6 +232,8 @@ def run_dlrm(args) -> dict:
           f"avg_sync_gap {out['avg_sync_gap']:.2f}; EPS(sim wall) {out['examples'] / wall:.0f}")
     if "cache_stats" in out:
         _print_cache(out["cache_stats"])
+    if "pipeline_stats" in out:
+        _print_pipeline(out["pipeline_stats"])
     if out.get("membership_events"):
         print("membership:", [(e.kind, e.slot) + ((e.reason,) if e.reason else ())
                               for e in out["membership_events"]])

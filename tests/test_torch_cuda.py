@@ -3,7 +3,9 @@
 These need a CUDA card and nvcc, and skip elsewhere. Run them on the card with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
+import dataclasses
 import math
+import threading
 
 import pytest
 
@@ -14,6 +16,7 @@ from repro_torch import optim  # noqa: E402
 from repro_torch.configs import dlrm_ctr  # noqa: E402
 from repro_torch.core import algorithms, runners, streams, sync  # noqa: E402
 from repro_torch.core.flatspace import FlatSpace  # noqa: E402
+from repro_torch.core.pipeline import PipelineConfig  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
 from repro_torch.kernels.easgd_update.ops import easgd_pair_flat_op, easgd_round_op  # noqa: E402
 from repro_torch.kernels.easgd_update.ref import easgd_round_ref, easgd_update_ref  # noqa: E402
@@ -494,6 +497,176 @@ def test_tiny_threaded_cached_runs_on_the_card(gen):
         one.append(r1.run(12)["emb_state"])
     for k in ("table", "acc"):
         assert torch.equal(one[0][k], one[1][k])
+
+
+# wide tables (m=1) and 32 examples a step: consecutive batches rarely share
+# a row (11 of seed 0's first 12 pairs share none), so the stager stages
+WIDE = dict(table_sizes=(200_000,) * 4, n_sparse_features=4, multi_hot=1)
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["uncached", "cached"])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_pipelined_sim_on_the_card_is_bitwise_serial(gen, depth, cached):
+    """The staged lookups run on the stager's stream and reach the owner
+    through ``streams.Published``: bitwise the serial run, with the cache's
+    counters equal too (a staged lookup's frequency count is taken by the
+    step that consumes it). Each step's ``float(loss)`` waits for the
+    owner's stream, so the fence has nothing pending here; the next test
+    holds the owner back to test it."""
+    cfg = dataclasses.replace(dlrm_ctr.tiny(), **WIDE)
+    cache = CacheConfig(hot_rows=4096, lookahead=2) if cached else None
+    # the serial run prefetches over the pipelined run's horizon
+    cache_s = (dataclasses.replace(cache, lookahead=cache.effective_lookahead(depth))
+               if cached else None)
+    outs = []
+    for p, c in ((None, cache_s), (PipelineConfig(depth=depth), cache)):
+        sim = runners.HogwildSim(cfg, sync.SyncConfig(gap=4), n_trainers=4, n_threads=1,
+                                 batch_size=8, optimizer=optim.adagrad(0.02), seed=3,
+                                 cache=c, pipeline=p, device="cuda")
+        outs.append(sim.run(12))
+    s, p = outs
+    assert s["train_loss"] == p["train_loss"]
+    for k in ("table", "acc"):
+        assert torch.equal(s["state"].emb_state[k], p["state"].emb_state[k]), k
+    assert torch.equal(s["state"].w_stack, p["state"].w_stack)
+    ps = p["pipeline_stats"]
+    assert ps["overlapped"] > 0 and ps["worker_errors"] == 0, ps
+    if cached:
+        staged = p["cache_stats"].pop("staged_lookups")
+        assert staged == ps["overlapped"] and s["cache_stats"].pop("staged_lookups") == 0
+        assert s["cache_stats"] == p["cache_stats"]
+
+
+SLEEP_CYCLES = 1_000_000_000  # about half a second of one SM's clock
+
+
+@pytest.mark.parametrize("intact", [True, False], ids=["intact", "removed"])
+@pytest.mark.parametrize("guard", ["fence", "hazard"])
+def test_the_stager_fence_and_hazard_check_order_the_staged_read(gen, guard, intact):
+    """The sim's stager (``HogwildSim._stager``) against an owner stream
+    that a sleep holds back ahead of each in-place update, with no host wait
+    between the steps (the update's ids are made beforehand: building them
+    copies the table offsets from the host, which waits for the stream). "fence": batch 2 shares its rows with batch 0 alone,
+    whose update is still pending when ``stage(1)`` stages batch 2, so only
+    the stager's wait on the owner's event keeps the staged read after it.
+    "hazard": batch 2 shares its rows with batch 1, whose update is
+    dispatched after ``stage(1)``, so the hazard check must leave batch 2 to
+    the serial lookup. Intact, the plane the step gets equals the lookup
+    after every update; with the wait (or the check) removed it differs, so
+    the case sees the fault it guards against."""
+    cfg = dataclasses.replace(dlrm_ctr.tiny(), **WIDE)
+    F, m, d = cfg.n_sparse_features, cfg.multi_hot, cfg.embedding_dim
+    sim = runners.HogwildSim(cfg, sync.SyncConfig(gap=4), n_trainers=1, n_threads=1,
+                             batch_size=8, optimizer=optim.adagrad(0.02),
+                             pipeline=PipelineConfig(depth=2), device="cuda")
+    ids = {"a": torch.arange(8), "b": torch.arange(100, 108)}
+    order = ["a", "b", "a"] if guard == "fence" else ["a", "b", "b"]
+    batches = []
+    for t, k in enumerate(order):
+        b = sim.make_batch(t)
+        b["sparse"] = ids[k].reshape(1, 1, 8, 1, 1).expand(1, 1, 8, F, m).to(
+            torch.int32).contiguous().cuda()
+        batches.append(b)
+    sim.make_batch = lambda it: batches[it]
+    st = sim.init_state()
+    g = torch.randn((8 * F, d), generator=gen).cuda()
+    bags = [emb.global_row_ids(sim.spec, b["sparse"].reshape(-1, F, m)).reshape(-1, m)
+            for b in batches]
+    torch.cuda.synchronize()
+
+    def update(t):  # the owner's in-place K2 of batch t, held back
+        torch.cuda._sleep(SLEEP_CYCLES)
+        sparse_adagrad_op(st.emb_state["table"], st.emb_state["acc"], bags[t], g, lr=0.5)
+
+    dev = torch.device("cuda")
+    with streams.on(streams.new_stream(dev)):
+        pipe, stager = sim._stager(st, None, 3, None)
+        if not intact and guard == "fence":
+            pipe._make_ctx = lambda: (st.emb_state, None)
+        if not intact and guard == "hazard":
+            prepare = pipe._prepare
+            pipe._prepare = lambda it: {**prepare(it), "rows": [np.empty(0, np.int64)]}
+        for t in range(2):
+            pipe.consume(t)
+            pipe.stage(t)
+            update(t)
+        staged, _ = pipe.consume(2)
+        idx2 = batches[2]["sparse"].reshape(-1, F, m)
+        got = (streams.consume(staged[0]) if staged[0] is not None
+               else emb.lookup(st.emb_state, sim.spec, idx2))
+        pipe.close()
+    torch.cuda.synchronize()
+    stager.synchronize()
+    assert (staged[0] is None) == (guard == "hazard" and intact), pipe.stats
+    want = emb.lookup(st.emb_state, sim.spec, idx2)
+    assert torch.equal(got, want) == intact
+
+
+def test_a_policy_readmission_runs_on_the_trainers_stream(gen):
+    """The policy decides on the shadow thread; the slot's own trainer
+    carries the re-admission out, on the stream its steps run on, so the
+    bootstrap's weights and fresh optimizer state are made where the
+    trainer reads them."""
+    from repro_torch.core.membership import FaultSpec
+    from repro_torch.core.scheduler import PolicyConfig, StragglerPolicy
+
+    policy = StragglerPolicy(PolicyConfig(eps_floor_frac=0.5, readmit_frac=0.75, window_s=0.5,
+                                          probation_s=0.1, min_active=2), n_slots=3)
+    # every slot paced by a short sleep, slot 2 by a long one for 4 iterations
+    r = runners.ThreadedShadowRunner(
+        dlrm_ctr.tiny(), sync.SyncConfig(alpha=0.5, gap=3), n_trainers=3, batch_size=32,
+        optimizer=optim.adagrad(0.02), sync_sleep_s=0.01, eps_window_s=0.25,
+        fault_spec=FaultSpec(straggler_sleep_s={0: 0.01, 1: 0.01, 2: 0.3},
+                             straggler_until={2: 4}),
+        straggler_policy=policy, device="cuda")
+    r.warmup()
+    admitted, stepped = [], {}
+    admit, dense = r._admit_slot, r._train_dense
+
+    def spy_admit(slot, reason=""):
+        admitted.append((slot, threading.current_thread().name,
+                         torch.cuda.current_stream().cuda_stream))
+        admit(slot, reason)
+
+    def spy_dense(*a):
+        stepped.setdefault(threading.current_thread().name,
+                           torch.cuda.current_stream().cuda_stream)
+        return dense(*a)
+
+    r._admit_slot, r._train_dense = spy_admit, spy_dense
+    out = r.run(400)
+    kinds = [(e.kind, e.slot) for e in out["membership_events"]]
+    assert kinds[:3] == [("leave", 2), ("join", 2), ("activate", 2)], out["membership_events"]
+    assert [a[:2] for a in admitted] == [(2, "trainer-2")]
+    assert admitted[0][2] == stepped["trainer-2"] != torch.cuda.default_stream().cuda_stream
+    assert all(math.isfinite(x) for x in out["train_loss"])
+
+
+def test_the_stager_launches_the_kernel(gen):
+    """Every step's lookup, staged or serial, is one K1 launch on the card
+    (the counter rises only where the kernel launches); and one fixed_rate
+    threaded trainer pipelined is bitwise its serial run."""
+    cfg = dataclasses.replace(dlrm_ctr.tiny(), **WIDE)
+    sim = runners.HogwildSim(cfg, sync.SyncConfig(gap=4), n_trainers=4, n_threads=1,
+                             batch_size=8, optimizer=optim.adagrad(0.02),
+                             pipeline=PipelineConfig(depth=2), device="cuda")
+    st = sim.init_state()
+    before = embedding_bag_op.launches
+    out = sim.run(8, state=st)
+    assert embedding_bag_op.launches - before == 8
+    ps = out["pipeline_stats"]
+    assert ps["overlapped"] > 0 and ps["overlapped"] + ps["hazard_serialized"] == 7, ps
+    outs = []
+    for p in (None, PipelineConfig(depth=2)):
+        r1 = runners.ThreadedShadowRunner(cfg, sync.SyncConfig(mode="fixed_rate", gap=4),
+                                          n_trainers=1, batch_size=32,
+                                          optimizer=optim.adagrad(0.02), supervise=False,
+                                          pipeline=p, device="cuda")
+        outs.append(r1.run(10))
+    assert outs[0]["train_loss"] == outs[1]["train_loss"]
+    for k in ("table", "acc"):
+        assert torch.equal(outs[0]["emb_state"][k], outs[1]["emb_state"][k])
+    assert outs[1]["pipeline_stats"]["overlapped"] > 0
 
 
 def test_checkpoint_round_trip_on_the_card(gen, tmp_path):

@@ -1,6 +1,6 @@
 """Rules of the port: it imports no JAX and nothing of the JAX package, its
-entry points run on the card unless the CPU is asked for, and options of
-parts not yet ported are refused rather than ignored."""
+entry points run on the card unless the CPU is asked for, and every option
+of the DLRM runners and launcher is ported (accepted, and it trains)."""
 import ast
 import os
 
@@ -13,6 +13,7 @@ from repro_torch import optim  # noqa: E402
 from repro_torch.configs import dlrm_ctr  # noqa: E402
 from repro_torch.core import algorithms, runners, sync  # noqa: E402
 from repro_torch.core.membership import Membership  # noqa: E402
+from repro_torch.core.pipeline import PipelineConfig  # noqa: E402
 from repro_torch.embeddings.cache import CacheConfig  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -46,6 +47,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for name in ("ma_update", "bmuf_update", "gossip_update"):  # the sync kernels' modules
         for mod in (f"{name}.py", "ops.py", "ref.py"):
             assert os.path.join(PORT, "kernels", name, mod) in files
+    for mod in ("pipeline", "scheduler", "modeswitch"):  # host-only copies of JAX-free modules
+        assert os.path.join(PORT, "core", f"{mod}.py") in files
     bad = [(os.path.relpath(p, ROOT), m) for p in files for m in _imported_roots(p)
            if m in FORBIDDEN]
     assert not bad, f"forbidden imports in the port: {bad}"
@@ -94,20 +97,21 @@ def test_resolve_device():
 @pytest.mark.parametrize("option", ["membership", "schedule", "cache", "pipeline",
                                     "mode_schedule"])
 def test_sim_refuses_unported_options(option):
-    """Options of parts not yet ported are refused. ``membership``,
-    ``schedule`` and ``cache`` are ported now: each is accepted and trains."""
+    """Every option of the sim is ported now: each is accepted and trains
+    (none raises ``NotImplementedError`` any more)."""
     ported = {"membership": Membership(2, R_max=3), "schedule": [(1, "fail", 1)],
-              "cache": CacheConfig(hot_frac=0.5)}
-    if option in ported:
-        out = _sim(device="cpu", **{option: ported[option]}).run(2)
-        assert len(out["train_loss"]) == 2 and all(v == v for v in out["train_loss"])
-        if option == "cache":
-            assert out["cache_stats"]["lookups"] == 2
-        else:
-            assert out["replica_losses"].shape[0] == 2
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _sim(device="cpu", **{option: object()})
+              "cache": CacheConfig(hot_frac=0.5), "pipeline": PipelineConfig(depth=2),
+              "mode_schedule": [(1, "fixed_rate")]}
+    out = _sim(device="cpu", **{option: ported[option]}).run(2)
+    assert len(out["train_loss"]) == 2 and all(v == v for v in out["train_loss"])
+    if option == "cache":
+        assert out["cache_stats"]["lookups"] == 2
+    elif option == "pipeline":
+        assert out["pipeline_stats"]["steps"] == 2 and out["pipeline_stats"]["worker_errors"] == 0
+    elif option == "mode_schedule":
+        assert out["mode_events"] == [(1, "shadow", "fixed_rate")]
+    else:
+        assert out["replica_losses"].shape[0] == 2
 
 
 @pytest.mark.parametrize("flags", [
@@ -116,22 +120,28 @@ def test_sim_refuses_unported_options(option):
     ["--auto-demote"], ["--auto-mode"], ["--threaded", "--auto-demote"],
 ])
 def test_cli_refuses_unported_flags(flags, tmp_path):
-    """Flags of parts not yet ported are refused; ``--membership-schedule``,
-    ``--cache-rows``, ``--save`` and ``--restore`` are ported now: each is
-    accepted and trains (``--restore`` from a checkpoint saved first)."""
+    """Every flag is ported now: each trains (``--restore`` from a checkpoint
+    saved first), except ``--auto-demote`` and ``--auto-mode`` without
+    ``--threaded``, which exit with the JAX launcher's message (the sim has
+    no measured pace to act on)."""
+    if flags in (["--auto-demote"], ["--auto-mode"]):
+        with pytest.raises(SystemExit, match=f"{flags[0]} requires --threaded"):
+            train.main(["dlrm", "--device", "cpu", "--iters", "1", *flags])
+        return
     if flags[-1] == "ck":
         flags = flags[:-1] + [str(tmp_path / "ck")]
         if flags[0] == "--restore":
             train.main(["dlrm", "--device", "cpu", "--tiny", "--iters", "1", "--eval-batches",
                         "1", "--save", flags[1]])
-    if flags[0] in ("--membership-schedule", "--save", "--restore") or "--cache-rows" in flags:
-        small = ["--batch-size", "8", "--trainers", "2", "--threads", "2"]
-        out = train.main(["dlrm", "--device", "cpu", "--tiny", "--iters", "2",
-                          "--eval-batches", "1", *small, *flags])
-        assert all(v == v for v in out.values() if isinstance(v, float))
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.main(["dlrm", "--device", "cpu", "--iters", "1", *flags])
+    small = ["--batch-size", "8", "--trainers", "2", "--threads", "2"]
+    out = train.main(["dlrm", "--device", "cpu", "--tiny", "--iters", "2",
+                      "--eval-batches", "1", *small, *flags])
+    assert all(v == v for v in out.values() if isinstance(v, float))
+    if flags == ["--pipeline-depth", "2"]:
+        assert set(out) == {"final_train", "eval", "avg_sync_gap"}
+    if "--auto-demote" in flags:
+        assert out["iter_count"] == [2, 2]  # two slots at the quorum of two: none demoted
+        assert all(to != "demoted" for *_, to in out["policy_transitions"])
 
 
 def test_threaded_cli_without_device_needs_the_card(no_cuda):

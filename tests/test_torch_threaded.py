@@ -30,6 +30,9 @@ from repro_torch import tree as T  # noqa: E402
 from repro_torch.configs import dlrm_ctr  # noqa: E402
 from repro_torch.core import runners, streams, sync  # noqa: E402
 from repro_torch.core.membership import FaultSpec  # noqa: E402
+from repro_torch.core.modeswitch import ModeConfig, ModeController  # noqa: E402
+from repro_torch.core.pipeline import PipelineConfig  # noqa: E402
+from repro_torch.core.scheduler import StragglerPolicy  # noqa: E402
 from repro_torch.core.supervision import SupervisorConfig  # noqa: E402
 from repro_torch.data import ctr  # noqa: E402
 from repro_torch.embeddings import shards  # noqa: E402
@@ -190,14 +193,25 @@ def test_ps_fail_serves_snapshot_then_recovers():
 
 @pytest.mark.parametrize("option", ["cache", "pipeline", "straggler_policy", "mode_controller"])
 def test_unported_options_raise(option):
-    """Options of parts not yet ported raise; ``cache`` is ported now: it is
-    accepted and trains (tests/test_torch_cache.py holds it to the uncached run)."""
+    """Every option is ported now: each is accepted and trains (held further
+    by tests/test_torch_{cache,pipeline,scheduler,modeswitch}.py)."""
     if option == "cache":
         out = _runner(cache=CacheConfig(hot_frac=0.5, lookahead=1)).run(3)
         assert out["iter_count"] == [3, 3] and out["cache_stats"]["lookups"] > 0
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _runner(**{option: object()})
+    elif option == "pipeline":
+        out = _runner(pipeline=PipelineConfig(depth=2)).run(3)
+        assert out["iter_count"] == [3, 3] and out["pipeline_stats"]["steps"] == 6
+        assert out["pipeline_stats"]["worker_errors"] == 0
+    elif option == "straggler_policy":
+        out = _runner(straggler_policy=StragglerPolicy(n_slots=2)).run(3)
+        assert out["iter_count"] == [3, 3]
+        # two slots at the default quorum of two: watched, never demoted
+        assert all(to != "demoted" for *_, to in out["policy_transitions"])
+    else:
+        ctl = ModeController(ModeConfig(start_mode="shadow"))
+        out = _runner(mode_controller=ctl).run(3)
+        assert out["iter_count"] == [3, 3] and out["mode"] == "shadow"
+        assert out["mode_transitions"] == []
 
 
 def test_chaos_needs_the_supervisor_and_a_shadow_thread():

@@ -56,6 +56,13 @@ Phases, each of which asserts (any failure exits non-zero):
      fixed_rate, the mode controller moves a fixed_rate cohort to shadow,
      and the full-width sim under a scripted shadow -> fixed_rate ->
      shadow schedule matches its host replay (mode events, syncs, K3);
+     then the threaded runner at full width under the port's lockdep
+     (``repro_torch.analysis.lockdep``: every lock the run builds, the
+     kernel backend's launch locks, and the host's waits on the card and on
+     a subprocess checked): fixed_rate EASGD cached and pipelined, beside
+     the same run uninstrumented, and the shadow policy run that demotes and
+     re-admits slot 3; each without a finding, a lock-order cycle or a
+     stall left behind;
   7. the serving path: the DLRM state released (device memory before and
      after), phi3-medium-14b at the full width of its CONFIG (bf16, 14.7 B
      parameters drawn on the card), K9 held against its plain version on
@@ -139,6 +146,11 @@ STRAGGLE_SLEEP, STRAGGLE_METER, STRAGGLE_WINDOW = 2.0, 8.0, 2.0
 STRAGGLE_UNTIL, STRAGGLE_ITERS = 4, 32
 MODE_ITERS, MODE_SIM_ITERS = 16, 14
 MODE_SCRIPT = ((3, "fixed_rate"), (9, "shadow"))  # the sim's scripted handoffs
+# lockdep_path: the cached, pipelined fixed_rate run's iterations a trainer
+# (gap 4: two barrier rounds), the stall the harness may not leave behind,
+# and the graph sites of the kernel backend's launch locks
+LOCKDEP_ITERS, LOCKDEP_STALL_S = 8, 0.1
+LAUNCH_LOCK_SITES = ("backend._BUILD_LOCK", "backend._COUNT_LOCK")
 
 # torch.profiler traces: the marker kernel (torch.cuda._sleep's) that opens
 # and closes the recorded run, its length, the card's clock for the pad
@@ -1838,13 +1850,14 @@ def policy_mode_phase(torch, cfg, all_ops, path_counts, paces, full_tables):
     the mode controller moves a fixed_rate run with that straggler to shadow;
     the full-width sim under a scripted shadow -> fixed_rate -> shadow
     schedule, its mode events, syncs and K3 launches equal to the host's
-    replay."""
+    replay. Returns each policy run's examples/s by mode."""
     from repro_torch import optim
     from repro_torch.core.modeswitch import ModeConfig, ModeController
     from repro_torch.core.runners import HogwildSim
     from repro_torch.core.scheduler import PolicyConfig, StragglerPolicy
     from repro_torch.core.sync import SyncConfig
 
+    policy_eps = {}
     for mode in ("shadow", "fixed_rate"):
         unit = B / paces[mode]  # one iteration of one trainer in the mode, in s
         window = STRAGGLE_WINDOW * unit
@@ -1864,6 +1877,7 @@ def policy_mode_phase(torch, cfg, all_ops, path_counts, paces, full_tables):
         if mode == "fixed_rate":
             assert out["sync_rounds"] == 0 and counts["easgd_pair"] > 0, (out["sync_rounds"],
                                                                           counts)
+        policy_eps[mode] = out["eps"]
         emit({"phase": "policy_path", "mode": mode, "iteration_s": unit,
               "sleep_s": STRAGGLE_SLEEP * unit, "window_s": window,
               "straggler_until": STRAGGLE_UNTIL, "iters_per_trainer": STRAGGLE_ITERS,
@@ -1920,6 +1934,102 @@ def policy_mode_phase(torch, cfg, all_ops, path_counts, paces, full_tables):
           "ms_per_iter": ms, "loss_last": out["train_loss"][-1]})
     del sim, st, out
     release(torch)
+    return policy_eps
+
+
+def lockdep_phase(torch, cfg, all_ops, paces, full_tables, policy_eps):
+    """``lockdep_path``: the threaded runner at full width, built and run
+    under the port's lockdep with the blocking calls patched (sleep, join,
+    the host's waits on the card, subprocess waits) and the kernel
+    backend's locks instrumented. Run 1: fixed_rate EASGD, cached (a
+    262,144-row hot tier a PS) and pipelined (depth 2), beside the same run
+    uninstrumented (the barrier, the cache's gate and migrations, the
+    stager streams). Run 2: shadow, slot 3 demoted and re-admitted by the
+    policy on its trainer's stream (the re-admission hand-off), beside the
+    ``policy_path`` shadow run, which is the same run uninstrumented. Each
+    instrumented run: no finding (held-lock wait or order cycle), an acyclic
+    graph, no stall of ``LOCKDEP_STALL_S`` left, and the launch locks among
+    the graph's sites (the launches were seen)."""
+    from repro_torch import optim
+    from repro_torch.analysis import lockdep
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.core.runners import ThreadedShadowRunner
+    from repro_torch.core.scheduler import PolicyConfig, StragglerPolicy
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.embeddings.cache import CacheConfig
+
+    card = card_line()
+    t_phase = time.perf_counter()
+
+    def cached_pipelined():
+        r = ThreadedShadowRunner(
+            cfg, SyncConfig(mode="fixed_rate", gap=4), n_trainers=R, batch_size=B,
+            optimizer=optim.adagrad(0.02), n_emb_shards=N_SHARDS,
+            cache=CacheConfig(hot_rows=THREADED_HOT_ROWS, lookahead=CACHE_LOOKAHEAD),
+            pipeline=PipelineConfig(2), device="cuda")
+        r.warmup()
+        return r, LOCKDEP_ITERS
+
+    def shadow_policy():  # policy_path's shadow run
+        unit = B / paces["shadow"]
+        window = STRAGGLE_WINDOW * unit
+        policy = StragglerPolicy(PolicyConfig(window_s=window, probation_s=window), n_slots=R)
+        return straggler_runner(cfg, "shadow", unit, straggler_policy=policy), STRAGGLE_ITERS
+
+    def drive(make):
+        """Build and run; the launch counts set to 0 just before the run."""
+        runner, iters = make()
+        reset_counts(all_ops.values())
+        with TablesFrom(full_tables):
+            out = runner.run(iters)
+        counts = {k: op.launches for k, op in all_ops.items()}
+        n_calls = R * N_SHARDS * iters
+        assert out["iter_count"] == [iters] * R, out["iter_count"]
+        assert all(math.isfinite(x) for x in out["train_loss"]), out["train_loss"]
+        assert counts["embedding_bag"] == n_calls and counts["sparse_adagrad"] > 0, counts
+        del runner
+        return out, counts
+
+    def instrumented(make):
+        with lockdep.instrument() as g:
+            out, counts = drive(make)
+        g.assert_clean()
+        g.assert_acyclic()
+        stalls = g.stalled(LOCKDEP_STALL_S)
+        assert stalls == [], stalls
+        assert set(LAUNCH_LOCK_SITES) <= g.sites, sorted(g.sites)
+        waits = sum("called while holding" in v for v in g.violations)
+        return out, counts, g, waits
+
+    def row(run, iters, g, waits, out, counts, eps_plain, **extra):
+        return {"phase": "lockdep_path", "run": run, "card": card, "trainers": R,
+                "iters_per_trainer": iters, "sites": len(g.sites), "edges": len(g.edges),
+                "held_lock_waits": waits, "stalls": 0, "eps": out["eps"],
+                "eps_uninstrumented": eps_plain, "wall_s": out["wall_s"],
+                "lock_sites": sorted(g.sites), "lock_edges": sorted(g.edges),
+                "launches": {k: counts[k] for k in ("embedding_bag", "sparse_adagrad",
+                                                    "easgd_pair")}, **extra}
+
+    plain, _ = drive(cached_pipelined)
+    release(torch)
+    out, counts, g, waits = instrumented(cached_pipelined)
+    assert out["sync_count"] == R * (LOCKDEP_ITERS // 4) and out["sync_rounds"] == 0, out
+    assert out["pipeline_stats"]["worker_errors"] == 0, out["pipeline_stats"]
+    assert out["cache_stats"]["lookups"] == R * N_SHARDS * LOCKDEP_ITERS, out["cache_stats"]
+    emit(row("fixed_rate cached pipelined", LOCKDEP_ITERS, g, waits, out, counts, plain["eps"],
+             cache_stats=out["cache_stats"], pipeline_stats=out["pipeline_stats"]))
+    del plain, out, g
+    release(torch)
+
+    out, counts, g, waits = instrumented(shadow_policy)
+    events = [(e.kind, e.slot, e.reason) for e in out["membership_events"]]
+    assert [(k, s) for k, s, _ in events[:3]] == [("leave", R - 1), ("join", R - 1),
+                                                  ("activate", R - 1)], events
+    emit(row("shadow policy", STRAGGLE_ITERS, g, waits, out, counts, policy_eps["shadow"],
+             membership_events=events))
+    del out, g
+    release(torch)
+    emit({"phase": "lockdep_path", "card": card, "seconds": time.perf_counter() - t_phase})
 
 
 def main() -> int:
@@ -2326,7 +2436,8 @@ def main() -> int:
 
     # 6c · step pipelining, the straggler policy and mode switching
     full_tables = pipeline_phase(torch, cfg, all_ops, path_counts)
-    policy_mode_phase(torch, cfg, all_ops, path_counts, paces, full_tables)
+    policy_eps = policy_mode_phase(torch, cfg, all_ops, path_counts, paces, full_tables)
+    lockdep_phase(torch, cfg, all_ops, paces, full_tables, policy_eps)
     del full_tables
     for k in ops:  # K1-K4's launches on this slice's paths
         rows[k]["launches_pipeline_path"] = {p: c[k] for p, c in path_counts.items()

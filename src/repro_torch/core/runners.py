@@ -378,8 +378,8 @@ class HogwildSim:
         store: Optional[CachedStore] = None
         la = 0
         # batch ids on the host, shared by the prefetch horizon, the stager
-        # and the cached step (guarded-by: gid_lock)
-        gid_memo: Dict[int, np.ndarray] = {}
+        # and the cached step
+        gid_memo: Dict[int, np.ndarray] = {}  # guarded-by: gid_lock
         gid_lock = threading.Lock()
         if self.cache is not None:
             store = CachedStore(st.emb_state, self.cache)
@@ -758,6 +758,7 @@ class ThreadedShadowRunner:
         self.engine = sync_cfg.engine
         self.algo = algorithms.get(sync_cfg.algo)
         self.R, self.B = n_trainers, batch_size
+        # hogwild-race: ok — pure functions: update() returns new state, mutates nothing
         self.opt = optimizer
         self.emb_lr = emb_lr
         self.seed = seed
@@ -887,7 +888,9 @@ class ThreadedShadowRunner:
         self._bootstrap_join(slot)
         self.membership.activate(slot)
 
-    # holds-lock: _state_lock
+    # holds-lock: _state_lock; lock-blocking: ok — admission must be atomic
+    # with the membership transition; joins are rare and bounded (one stack
+    # + the join hook over the live cohort, on the joiner's stream)
     def _bootstrap_join(self, i: int) -> None:
         """Bootstrap a joining slot through the algorithm's join hook (the
         live mean; EASGD: the PS plane) with a fresh optimizer state. The flat
@@ -962,8 +965,9 @@ class ThreadedShadowRunner:
         dev = self.device
         gen = torch.Generator().manual_seed(self.seed)
         w0 = dlrm.init_dense(self.cfg, gen, device=dev)
-        self._w0 = w0  # written once pre-spawn, read-only after
+        self._w0 = w0  # hogwild-race: ok — written once pre-spawn, read-only after
         # Per-PS Hogwild states, seed-identical to the packed single table.
+        # hogwild-race: ok — bound once pre-spawn; rebinding after spawn is a bug
         self.emb = emb_shards.EmbeddingShards.init(self.plan, gen, retry=self.shard_retry,
                                                    cache=self.cache, device=dev)
         if self.engine == "flat":
@@ -973,13 +977,14 @@ class ThreadedShadowRunner:
         else:
             w_init = [T.map(torch.clone, w0) for _ in range(self.R)]
             algo_state = self.algo.init_state(w0, self.sync_cfg)
+        # swap-published: elements — fresh optimizer state per publish
         self.opt_states = [self.opt.init(w0) for _ in range(self.R)]
         # all initial state complete on the device before any thread starts
         init_event = streams.record(dev)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        # published: trainer i publishes w[i]; the round republishes the
-        # cohort's planes and the algorithm state (see the class docstring)
+        # swap-published: elements — trainer i publishes w[i]; the round
+        # republishes the cohort's planes and the algorithm state
         self.w: List[streams.Published] = [streams.Published(x, init_event) for x in w_init]
         self.algo_state = streams.Published(algo_state, init_event)  # guarded-by: _state_lock
         trainer_streams = [streams.new_stream(dev) for _ in range(self.R)]
@@ -1000,35 +1005,48 @@ class ThreadedShadowRunner:
         # with slot provenance after join), dead sync-thread incarnations,
         # restart/degradation state, PS chaos tracking.
         self._trainer_excs: List[Tuple[int, BaseException]] = []  # guarded-by-writes: _state_lock
+        # hogwild-race: ok — append-only post-mortem log, atomic under the GIL
         self._sync_excs: List[BaseException] = []
-        self._shadow_rounds = 0  # single logical writer (generation-fenced shadow)
-        self._sync_degraded = False
-        self._sync_stalled = False
-        self._sync_crash_t: Optional[float] = None
+        # hogwild-race: ok — single logical writer (generation-fenced shadow)
+        self._shadow_rounds = 0
+        self._sync_degraded = False  # hogwild-race: ok — single store, read post-join
+        self._sync_stalled = False  # hogwild-race: ok — same contract
+        self._sync_crash_t: Optional[float] = None  # hogwild-race: ok — same contract
+        # hogwild-race: ok — restart hook appends; read post-join
         self._sync_count_at_restart: List[int] = []
-        self._ps_injected: set = set()
-        self._tick_count = 0
+        self._ps_injected: set = set()  # hogwild-race: ok — supervision tick owns it
+        self._tick_count = 0  # hogwild-race: ok — supervision tick owns it
         self._sync_lock = threading.Lock()  # shadow/trainer threads both add
         # serializes algo_state transitions: the shadow round vs the rare
         # crash/join handlers
         self._state_lock = threading.Lock()
+        # guarded-by-writes: ex_lock — adds share examples' lock; eps reads are lock-free
         self.eps_meter = EPSMeter(window_s=self.eps_window_s)
         # per-slot meters on each trainer's BUSY clock (barrier waits excluded)
-        self.slot_eps = SlotEPS(self.R, window_s=self.eps_window_s)
+        self.slot_eps = SlotEPS(self.R, window_s=self.eps_window_s)  # hogwild-race: ok — slot-owned
         self._alive = [True] * self.R  # guarded-by-writes: _state_lock
-        # the policy's pending re-admissions, each taken by its slot's trainer
-        self._readmit_reason: List[Optional[str]] = [None] * self.R  # guarded-by: _state_lock
-        self.iter_count = [0] * self.R  # slot-owned counters
-        trainer_wall = [0.0] * self.R
-        # per-trainer step pipelines and their stats (slot-owned cells)
+        # The policy's pending re-admissions, each taken by its slot's trainer.
+        # guarded-by-writes: _state_lock — a trainer checks its own slot
+        # lock-free once an iteration; _take_readmit re-reads and clears it
+        # under the lock before acting, so a stale read costs one iteration
+        self._readmit_reason: List[Optional[str]] = [None] * self.R
+        self.iter_count = [0] * self.R  # hogwild-race: ok — slot-owned counters
+        trainer_wall = [0.0] * self.R  # hogwild-race: ok — slot-owned cells, read post-join
+        # per-trainer step pipelines and their stats
+        # hogwild-race: ok — slot-owned cells
         self._pipes: List[Optional[StepPipeline]] = [None] * self.R
+        # hogwild-race: ok — slot-owned cells, merged post-join
         self._pipe_stats: List[Optional[PipelineStats]] = [None] * self.R
+        # hogwild-race: ok — slot-owned lists, merged post-join
         losses: List[List[float]] = [[] for _ in range(self.R)]
         # quality signals: each slot's loss EMA (the policy's loss
         # divergence, the controller's quality skew) and the perf_counter
-        # stamp of its last landed sync (the policy's staleness), written
-        # by the round's publish under _state_lock
+        # stamp of its last landed sync (the policy's staleness)
+        # hogwild-race: ok — slot-owned cells (each trainer writes only its
+        # own; reader threads see a coherent latest float)
         self._loss_ema = [float("nan")] * self.R
+        # guarded-by-writes: _state_lock — written by the round's publish;
+        # lock-free reads see a coherent latest stamp
         self._last_sync_t = [time.perf_counter()] * self.R
         ex_lock = threading.Lock()
         auto = self.mode_ctl is not None
@@ -1037,24 +1055,28 @@ class ThreadedShadowRunner:
         # evaluator even while the barrier owns the rounds
         fr_static = (not auto) and self.sync_cfg.mode == "fixed_rate"
         has_fr = fr_static or auto
-        # the cohort's current mode (guarded-by-writes: _fr_cond); moved by
-        # _apply_mode_switch, read by the trainers each iteration
+        # The cohort's current mode, moved by _apply_mode_switch.
+        # guarded-by-writes: _fr_cond — trainers read it lock-free each
+        # iteration; a stale read is bounded-safe (an unregistered waiter
+        # returns at once from the sync point, and a trainer that misses one
+        # barrier boundary re-arrives at its next gap)
         self._mode = self.sync_cfg.mode
         # bumped on every handoff: trainers drain their pipelines on seeing it
-        self._mode_gen = 0
+        self._mode_gen = 0  # guarded-by-writes: _fr_cond
         if has_fr:
             # Foreground sync point: a Condition-based barrier whose party
             # count tracks membership, so a crash shrinks it instead of
             # deadlocking; a straggler still drags EVERYONE (the paper's
             # fixed-rate failure mode).
             self._fr_cond = threading.Condition()
+            # guarded-by: _fr_cond
             self._fr_registered = [bool(b) for b in self.membership.active_mask()]
             # per-slot arrival flags: the barrier fires only when every
             # REGISTERED slot has arrived
-            self._fr_arrived = [False] * self.R
-            self._fr_gen = 0
+            self._fr_arrived = [False] * self.R  # guarded-by: _fr_cond
+            self._fr_gen = 0  # guarded-by: _fr_cond
             # slot id of the thread elected to run the current round
-            self._fr_leader: Optional[int] = None
+            self._fr_leader: Optional[int] = None  # guarded-by: _fr_cond
         initial_active = set(int(j) for j in self.membership.active_ids())
         self._initial_running = len(initial_active)  # guarded-by-writes: ex_lock
 
@@ -1077,7 +1099,11 @@ class ThreadedShadowRunner:
         # that outruns the horizon pays a counted synchronous promotion.
         peek_memo: Dict[Tuple[int, int], np.ndarray] = {}  # guarded-by: peek_lock
         peek_lock = threading.Lock()
-        prefetch_gate = threading.Lock()
+        # one prefetch round at a time: a shadow incarnation that finds the
+        # flag up (a restart race) skips its round; the migrations run with
+        # no lock held (they wait on the card)
+        prefetch_busy = [False]  # guarded-by: prefetch_lock
+        prefetch_lock = threading.Lock()
 
         def _peek(i: int, it: int) -> np.ndarray:
             # trainer i's batch ``it`` ids on the host, drawn once for the
@@ -1096,8 +1122,10 @@ class ThreadedShadowRunner:
             if self.cache is None or self.cache.lookahead == 0:
                 return
             la = self.cache.effective_lookahead()
-            if not prefetch_gate.acquire(blocking=False):
-                return  # another incarnation (a restart race) is mid-round
+            with prefetch_lock:
+                if prefetch_busy[0]:
+                    return  # another incarnation (a restart race) is mid-round
+                prefetch_busy[0] = True
             try:
                 horizons: List[List[np.ndarray]] = [[] for _ in range(self.n_emb_shards)]
                 for i in range(self.R):
@@ -1113,7 +1141,8 @@ class ThreadedShadowRunner:
                     if store is not None and self.emb.health[s]:
                         store.prefetch(horizons[s])
             finally:
-                prefetch_gate.release()
+                with prefetch_lock:
+                    prefetch_busy[0] = False
 
         def _round_over_active() -> int:
             # The round runs over the LIVE planes only. It is kernel dispatch,

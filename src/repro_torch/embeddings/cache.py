@@ -183,19 +183,23 @@ class CachedStore:
         self.eps = eps
         H = cfg.resolve_hot_rows(self.n_rows)
         self.hot_budget = H
-        # written only by a migration, which holds the gate alone
+        # hogwild-race: ok — written only by a migration, which holds the gate
+        # alone; readers hold a share or the gate
         self.cold: Dict[str, np.ndarray] = {k: _host_copy(state[k]) for k in state}
         # initial placement: rows [0, H) hot (the stream's skew is on low ids)
         slot = np.full(self.n_rows, -1, np.int32)
         slot[:H] = np.arange(H, dtype=np.int32)
         hot_row = np.arange(H, dtype=np.int32)
         hot = {k: state[k][:H].detach().to(torch.float32).clone() for k in state}
+        # swap-published; guarded-by-writes: _cond — every placement change
+        # lands as a fresh TierState; trainers read lock-free
         self._st = TierState(hot, Routing(slot, hot_row, 0), streams.record(self.device))
-        # the LFU signal (guarded-by: _cond): counted by lookups, aged by
-        # ``prefetch``, read by a migration's plan
-        self.freq = np.zeros(self.n_rows, np.float64)
+        # the LFU signal: counted by lookups, aged by ``prefetch``, read by a
+        # migration's plan
+        self.freq = np.zeros(self.n_rows, np.float64)  # guarded-by: _cond
+        # swap-published; hogwild-race: ok — prefetcher rebinds a fresh mask
         self._pinned = np.zeros(self.n_rows, bool)  # the prefetch horizon's rows
-        self.stats = CacheStats()  # diagnostic counters
+        self.stats = CacheStats()  # hogwild-race: ok — diagnostic counters
         self._row_bytes = 4 * self.dim * len(self.cold)  # f32 table + acc
         self._cond = threading.Condition(threading.Lock())
         self._readers = 0  # guarded-by: _cond

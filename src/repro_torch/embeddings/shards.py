@@ -234,10 +234,16 @@ class EmbeddingShards:
         self.cache = cache.validate() if cache is not None else None
         n = plan.n_shards
         self.device = states[0]["table"].device
-        self.health: List[bool] = [True] * n
-        self._streams: List = []  # every stream that reads or writes the shards (share_with)
+        self.health: List[bool] = [True] * n  # guarded-by-writes: _lock
+        # every stream that reads or writes the shards (share_with)
+        # hogwild-race: ok — bound once by share_with before any thread starts
+        self._streams: List = []
         if self.cache is None:
+            # swap-published: elements; hogwild-race: ok — the slots are never
+            # rebound; the kernels update their tensors in place (Hogwild)
             self.states: List[Optional[Params]] = list(states)
+            # swap-published: elements; guarded-by-writes: _lock — whole-store
+            # incarnations swapped on fail/recover; lock-free reads
             self.stores: List[Optional[CachedStore]] = [None] * n
             # two snapshot buffers per shard; snapshots[s] publishes the
             # complete one with its ready event, the other takes the next copy
@@ -250,20 +256,23 @@ class EmbeddingShards:
             self.stores = [CachedStore(st, self.cache) for st in states]
             self._buffers = [[dict(st)] for st in states]  # generation 0: the initial states
         ready = streams.record(self.device)
+        # swap-published: elements; guarded-by-writes: _lock
         self.snapshots: List[streams.Published] = [
             streams.Published(bufs[0], ready) for bufs in self._buffers]
-        self._snap_slot = [0] * n
+        self._snap_slot = [0] * n  # guarded-by: _lock — moves with snapshots[s]
         # per shard and buffer: the last event each reading stream recorded
         # after it read the buffer; a snapshot waits on them before
         # overwriting the buffer
+        # guarded-by: _lock
         self._readers: List[List[Dict[int, torch.cuda.Event]]] = [[{}, {}] for _ in range(n)]
-        self.dropped_updates: List[int] = [0] * n  # lossy-by-design counters
-        self.stale_lookups: List[int] = [0] * n
-        self.events: List[ShardEvent] = []
-        self.failed_at: Dict[int, float] = {}  # shard -> fail time
+        # hogwild-race: ok — lossy-by-design failure counters (under-count only)
+        self.dropped_updates: List[int] = [0] * n
+        self.stale_lookups: List[int] = [0] * n  # hogwild-race: ok — same lossy contract
+        self.events: List[ShardEvent] = []  # guarded-by-writes: _lock
+        self.failed_at: Dict[int, float] = {}  # guarded-by-writes: _lock — shard -> fail time
         # bumped on BOTH fail and recover: a snapshot copied across a
         # transition is not published
-        self.incarnations: List[int] = [0] * n
+        self.incarnations: List[int] = [0] * n  # guarded-by-writes: _lock
         self._lock = threading.Lock()
         self._snapshot_gate = threading.Lock()  # one snapshot_all at a time
 

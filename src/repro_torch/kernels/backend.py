@@ -96,6 +96,8 @@ def build(names: Iterable[str]) -> List[str]:
         return _build(names)
 
 
+# holds-lock: _BUILD_LOCK; lock-blocking: ok — the build is what the lock
+# serializes: a thread that needs the library waits for it either way
 def _build(names: Iterable[str]) -> List[str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
@@ -169,8 +171,14 @@ def index_tensor(ids: Sequence[int], device: torch.device) -> torch.Tensor:
     key = (str(device), tuple(int(i) for i in ids))
     with _INDEX_LOCK:
         t = _INDEX.get(key)
-        if t is None:
-            t = _INDEX[key] = torch.tensor(key[1], dtype=torch.int32).to(device)
+    if t is not None:
+        return t
+    # the copy to the card runs outside the lock; a racing first use of the
+    # same ids keeps the tensor that was stored first
+    new = torch.tensor(key[1], dtype=torch.int32).to(device)
+    with _INDEX_LOCK:
+        t = _INDEX.setdefault(key, new)
+        if t is new:
             _HOST_IDS[id(t)] = (t, key[1])
         return t
 

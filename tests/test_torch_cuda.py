@@ -642,6 +642,29 @@ def test_a_policy_readmission_runs_on_the_trainers_stream(gen):
     assert all(math.isfinite(x) for x in out["train_loss"])
 
 
+def test_a_host_wait_on_the_card_under_a_lock_is_caught(gen):
+    """Under the port's lockdep, ``torch.cuda.synchronize()`` (and an event's
+    or a stream's ``synchronize()``) inside an instrumented lock raises
+    ``BlockedUnderLockError``; outside the lock it waits as before, and a
+    launch records the backend's launch locks in the graph."""
+    from repro_torch.analysis.lockdep import BlockedUnderLockError, instrument
+
+    with instrument() as g:
+        lock = threading.Lock()
+        x = torch.randn((64, 16), generator=gen).cuda()
+        embedding_bag_op(x, torch.zeros((4, 2), dtype=torch.int32, device="cuda"))
+        ev = torch.cuda.Event()
+        ev.record()
+        for wait in (torch.cuda.synchronize, ev.synchronize,
+                     torch.cuda.current_stream().synchronize):
+            with pytest.raises(BlockedUnderLockError, match="synchronize"):
+                with lock:
+                    wait()
+        torch.cuda.synchronize()
+    assert len(g.violations) == 3
+    assert {"backend._BUILD_LOCK", "backend._COUNT_LOCK"} <= g.sites
+
+
 def test_the_stager_launches_the_kernel(gen):
     """Every step's lookup, staged or serial, is one K1 launch on the card
     (the counter rises only where the kernel launches); and one fixed_rate

@@ -75,7 +75,19 @@ Phases, each of which asserts (any failure exits non-zero):
      prefill, all by the tensor-core kernel; finite logits), a profiled
      prefill (with the SM clock sampled) and decode, and a reduced phi3 on
      the card held against the same weights on the CPU;
-  8. the kernel table as one JSON line, then the result line.
+  8. the LM trainer (``launch/train.py lm``, ``core/spmd.py``), once the
+     serving weights are released (device memory before and after): the
+     launcher's reduced minicpm-2b run under EASGD, MA, BMUF and Gossip on
+     the card (f32, TF32 off), each held against the same run on the CPU;
+     then minicpm-2b at the full width of its CONFIG with its depth cut to
+     24 layers (bf16, R=2 replicas, Adam, shadow EASGD every 5 iterations,
+     B=4 x S=2048 a replica): 2 warm-up and 10 timed iterations (median and
+     spread, tokens/s, sync ms, peak memory, model FLOP utilisation), a
+     profiled iteration's device idle share, a falling finite loss, and no
+     K1-K9 launch in the training window; then one step and a sync of a
+     reduced minicpm-2b on the card against the CPU, its weights and Adam
+     state carried in as numpy (``interop.lm_train_state_from_numpy``);
+  9. the kernel table as one JSON line, then the result line.
 """
 import cProfile
 import gc
@@ -151,6 +163,24 @@ MODE_SCRIPT = ((3, "fixed_rate"), (9, "shadow"))  # the sim's scripted handoffs
 # and the graph sites of the kernel backend's launch locks
 LOCKDEP_ITERS, LOCKDEP_STALL_S = 8, 0.1
 LAUNCH_LOCK_SITES = ("backend._BUILD_LOCK", "backend._COUNT_LOCK")
+
+# the LM trainer: the launcher's reduced run (20 iterations, R=2 x B=4 x
+# S=64) per algorithm, card against CPU; then minicpm-2b's CONFIG widths
+# (d_model 2304, 36 MHA heads of 64, d_ff 5760, vocab 122,753 padded to
+# 122,880, tied, bf16) with its depth cut from 40 to 24 layers: 1.748 B
+# parameters, whose bf16 stack (R=2), Adam's f32 m and v, the EASGD PS copy
+# and one replica's gradients come to 42 GB, with the out-of-place sync's
+# transient on top (all 40 layers: 65 GB steady, no room for it); R=2,
+# Adam 1e-3, shadow EASGD alpha 0.5 every 5 iterations, B=4 a replica x
+# S=2048 (two query chunks of 1024)
+LM_ALGOS = ("easgd", "ma", "bmuf", "gossip")
+LM_LAUNCH = ["--iters", "20", "--batch-size", "4", "--seq-len", "64"]
+LM_ARCH, LM_LAYERS, LM_R, LM_B, LM_S = "minicpm-2b", 24, 2, 4, 2048
+LM_WARM, LM_ITERS, LM_GAP, LM_LR = 2, 10, 5, 1e-3
+# the Markov stream's transition is (V, V) f32: over the full vocabulary it
+# would be 122,753^2 x 4 B = 60 GB, so the chain runs over the first 4,096
+# ids (64 MiB), valid ids of the full model
+LM_STREAM_VOCAB = 4096
 
 # torch.profiler traces: the marker kernel (torch.cuda._sleep's) that opens
 # and closes the recorded run, its length, the card's clock for the pad
@@ -866,12 +896,13 @@ def check_attention(torch, q, k, v, causal, mem_rate, timed=False):
     return out
 
 
-def profiled(torch, fn, check=None):
+def profiled(torch, fn, check=None, warm=True):
     """(fn's result, device time by kernel, wall time and device idle share
     of one call of ``fn``), from a torch.profiler trace of the device alone
-    (``fn`` runs twice: see ``traced``). Where every trace lost events, the
-    device figures are None (not measured) and the kernels an empty dict."""
-    out, wall_ms, events, _ = traced(torch, fn, check=check)
+    (``fn`` runs twice, or once without ``warm``: see ``traced``). Where
+    every trace lost events, the device figures are None (not measured) and
+    the kernels an empty dict."""
+    out, wall_ms, events, _ = traced(torch, fn, warm=warm, check=check)
     if events is None:
         return out, {}, {"wall_ms": wall_ms, "device_ms": None, "idle_share": None,
                          "device_launches": None, "top_device": None}
@@ -1070,6 +1101,174 @@ def serving_phase(torch, mem_rate, all_ops, path_counts):
     emit({"phase": "serve_reference", "arch": "phi3-medium-14b reduced, n_kv_heads=2, f32",
           "tokens_equal": True, "max_logit_diff_cuda_vs_cpu": diff})
     return row
+
+
+def lm_train_phase(torch, all_ops, path_counts):
+    """Phase 8: the LM trainer, reduced and at full width. Returns nothing;
+    every kernel's launches in its windows land in ``path_counts``."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+
+    from repro_torch import interop, optim
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core import algorithms, spmd
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import tokens as tok
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    def none_launched(path):
+        counts = path_counts[path] = {k: op.launches for k, op in all_ops.items()}
+        assert not any(counts.values()), (path, counts)
+
+    emit({"phase": "lm_memory", "when": "before",
+          "allocated_GB": torch.cuda.memory_allocated() / 1e9,
+          "reserved_GB": torch.cuda.memory_reserved() / 1e9})
+
+    # a · the launcher's reduced run, card against CPU (the launcher's
+    # printed lines are kept out of the smoke's output)
+    for algo in LM_ALGOS:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            reset_counts(all_ops.values())
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = train.main(["lm", "--device", dev, "--algo", algo] + LM_LAUNCH)
+            runs[dev] = (out, time.perf_counter() - t0)
+            if dev == "cuda":
+                none_launched(f"lm_launcher_{algo}")
+        card, cpu = runs["cuda"][0]["losses"], runs["cpu"][0]["losses"]
+        assert all(math.isfinite(x) for x in card), card
+        for a, b in zip(card, cpu):
+            assert abs(a - b) <= 1e-5 + 1e-4 * abs(b), ("lm launcher cuda vs cpu", algo, a, b)
+        assert runs["cuda"][0]["loss_end"] < runs["cuda"][0]["loss_start"], runs["cuda"][0]
+        emit({"phase": "lm_launcher", "algo": algo, "flags": LM_LAUNCH,
+              "loss_start": runs["cuda"][0]["loss_start"],
+              "loss_end": runs["cuda"][0]["loss_end"],
+              "max_loss_diff_cuda_vs_cpu": max(abs(a - b) for a, b in zip(card, cpu)),
+              "wall_s_cuda": runs["cuda"][1], "wall_s_cpu": runs["cpu"][1], "launches": 0})
+
+    # b · minicpm-2b at full width, its depth cut to LM_LAYERS
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = spmd.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_par = transformer.n_params(params)
+    opt = optim.adam(LM_LR)
+    stack = spmd.stack_replicas(params, LM_R)
+    opt_stack = spmd.stack_replicas(opt.init(params), LM_R)
+    sync_cfg = SyncConfig(algo="easgd", alpha=0.5).validate()
+    algo_state = algorithms.get("easgd").init_state(params, sync_cfg)
+    del params
+    train_step = spmd.make_train_step(cfg, opt, "shadow")
+    sync_step = spmd.make_sync_step(cfg, sync_cfg)
+    trans = tok.make_transition(LM_STREAM_VOCAB, seed=0)
+    n_batches = LM_WARM + LM_ITERS + 1  # and the profiled iteration
+    batches = [{"tokens": tok.gen_batch(trans, 0, it, LM_R * LM_B, LM_S)["tokens"]
+                .reshape(LM_R, LM_B, LM_S).cuda()} for it in range(n_batches)]
+    torch.cuda.synchronize()
+    emit({"phase": "lm_train_setup", "arch": cfg.name, "n_layers": LM_LAYERS,
+          "cut": f"depth 40 -> {LM_LAYERS}", "dtype": cfg.dtype, "params": n_par,
+          "replicas": LM_R, "batch_per_replica": LM_B, "seq_len": LM_S,
+          "stream_vocab": LM_STREAM_VOCAB, "setup_s": time.perf_counter() - t0,
+          "allocated_GB": torch.cuda.memory_allocated() / 1e9,
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+
+    state = {"stack": stack, "opt": opt_stack, "algo": algo_state}
+    del stack, opt_stack, algo_state
+    sync_ms = []
+
+    def iteration(it):
+        state["stack"], state["opt"], loss = train_step(state["stack"], state["opt"],
+                                                        batches[it])
+        if (it + 1) % LM_GAP == 0:
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            state["stack"], state["algo"] = sync_step(state["stack"], state["algo"])
+            torch.cuda.synchronize()
+            sync_ms.append((time.perf_counter() - t_s) * 1e3)
+        return loss
+
+    reset_counts(all_ops.values())
+    losses, iter_ms = [], []
+    for it in range(LM_WARM + LM_ITERS):
+        torch.cuda.synchronize()
+        if it == LM_WARM:
+            torch.cuda.reset_peak_memory_stats()
+            sync_ms.clear()
+        t_i = time.perf_counter()
+        losses.append(float(iteration(it).mean()))
+        torch.cuda.synchronize()
+        if it >= LM_WARM:
+            iter_ms.append((time.perf_counter() - t_i) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    # one profiled iteration, after the timed ones (warm already)
+    _, _, prof = profiled(torch, lambda: iteration(LM_WARM + LM_ITERS), warm=False)
+    none_launched("lm_train")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert len(sync_ms) == LM_ITERS // LM_GAP, sync_ms
+    med = sorted(iter_ms)[len(iter_ms) // 2]
+    tokens = LM_R * LM_B * LM_S
+    hd, L = cfg.resolved_head_dim, cfg.n_layers
+    attn = 3 * 4 * LM_R * LM_B * cfg.n_heads * LM_S * LM_S * hd * L
+    flops = 4 / 3 * (6 * n_par * tokens + attn)
+    emit({"phase": "lm_train_path", "arch": cfg.name, "n_layers": LM_LAYERS, "iters": LM_ITERS,
+          "ms_per_iter_median": med, "ms_per_iter": iter_ms,
+          "spread": (max(iter_ms) - min(iter_ms)) / med,
+          "tokens_per_s": tokens * LM_ITERS / (sum(iter_ms) / 1e3),
+          "sync_ms": sync_ms, "loss_first": losses[0], "loss_last": losses[-1],
+          "losses": losses, "peak_mem_GB": peak / 1e9,
+          "model_flops_per_iter": flops,
+          "mfu_formula": "4/3 * (6 * params * tokens + 3 * 4 * R * B * heads * S^2 * head_dim"
+                         " * layers) / (median s * BF16_RATE)",
+          "mfu": flops / (med / 1e3) / BF16_RATE, "launches": 0,
+          "profile": prof})
+    del state, batches
+    release(torch)
+
+    # c · one step and a sync of a reduced minicpm-2b, card against CPU:
+    # weights, Adam's m, v, t (t=3, v well above the gradients' rounding,
+    # so no weight's step hangs on it) and the PS copy carried in as numpy
+    small = reduced(get_config(LM_ARCH))
+    rng = np.random.default_rng(1)
+    p0 = interop.tree_to_numpy(spmd.init_params(small, torch.Generator().manual_seed(1),
+                                                device="cpu"))
+    stack_np = T.map(lambda x: np.stack([x, x + np.float32(0.01) * rng.standard_normal(
+        x.shape, np.float32)]), p0)
+    opt_np = {"m": T.map(lambda x: 1e-3 * rng.standard_normal(x.shape, np.float32), stack_np),
+              "v": T.map(lambda x: 1e-4 + 1e-4 * rng.random(x.shape, np.float32), stack_np),
+              "t": np.full((2,), 3, np.int32)}
+    toks = tok.gen_batch(tok.make_transition(small.vocab_size, seed=1), 1, 0, 2 * 4,
+                         256)["tokens"].reshape(2, 4, 256)
+    step = spmd.make_train_step(small, optim.adam(LM_LR), "shadow")
+    sync = spmd.make_sync_step(small, SyncConfig(algo="easgd", alpha=0.5))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        reset_counts(all_ops.values())
+        stack, ost, ps = interop.lm_train_state_from_numpy(stack_np, opt_np, "easgd", p0,
+                                                           device=dev)
+        stack, ost, loss = step(stack, ost, {"tokens": toks.to(dev)})
+        stack, ps = sync(stack, ps)
+        res[dev] = T.map(lambda x: x.cpu(), (loss, stack, ost, ps))
+        if dev == "cuda":
+            none_launched("lm_step_reference")
+    diff = 0.0
+    for a, b in zip(T.leaves(res["cuda"]), T.leaves(res["cpu"])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)  # trajectory tol
+        diff = max(diff, (a.double() - b.double()).abs().max().item())
+    emit({"phase": "lm_step_reference", "arch": "minicpm-2b reduced, f32, R=2, B=4 x S=256",
+          "optimizer": "adam", "sync": "easgd", "max_abs_diff_cuda_vs_cpu": diff,
+          "leaves": len(T.leaves(res["cuda"]))})
+    del res
+    release(torch)
+    emit({"phase": "lm_memory", "when": "after",
+          "allocated_GB": torch.cuda.memory_allocated() / 1e9,
+          "reserved_GB": torch.cuda.memory_reserved() / 1e9})
 
 
 def shadow_plan(sim, state, n_iters, n_live, sched=()):
@@ -2451,9 +2650,12 @@ def main() -> int:
           "reserved_GB_after": torch.cuda.memory_reserved() / 1e9})
     k9_row = serving_phase(torch, mem_rate, all_ops, path_counts)
     k9_row["launches"] = path_counts["serve_phi3"]["flash_attention"]
+
+    # 8 · the LM trainer
+    lm_train_phase(torch, all_ops, path_counts)
     k8_row["launches"] = sum(c["interaction"] for c in path_counts.values())  # no path runs K8
 
-    # 8 · the kernel table, the card, the result
+    # 9 · the kernel table, the card, the result
     main_path_of = {"replica_mean": "sim_ma", "ma_update": "sim_ma",
                     "replica_mean_rows": "elastic_ma", "ma_update_rows": "elastic_ma",
                     "bmuf_update": "sim_bmuf", "bmuf_update_rows": "elastic_bmuf",
@@ -2464,6 +2666,9 @@ def main() -> int:
         assert row["launches"] > 0, (k, row["launches_by_path"])
     rows.update(sync_rows)
     rows["interaction"], rows["flash_attention"] = k8_row, k9_row
+    for k, row in rows.items():  # the LM trainer's full-width window: none
+        op = k if k in all_ops else k.rsplit("_", 2)[0]
+        row["launches_lm_train"] = path_counts["lm_train"][op]
     emit({"kernels": [{k: v for k, v in row.items() if k != "tol"} for row in rows.values()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -20,6 +20,8 @@ name. The built-ins are EASGD (paper Algorithm 2), MA (Algorithm 3), BMUF
 * ``make_shadow_round(cfg, fs)`` — ``ThreadedShadowRunner``'s background
   round over the live per-trainer planes (flat) or trees (pytree). Its
   planes are out of place: trainer threads may still read the old ones.
+* ``make_sync_step(cfg)`` — the LM trainer's background program
+  (``core/spmd.py``): one ``land`` over the whole replica stack.
 * ``on_join`` / ``on_join_flat`` / ``on_leave`` / ``on_leave_flat`` — the
   elastic hooks both runners call when a slot joins or leaves;
   ``join_plane_flat`` — the joiner's plane alone, which ``on_join_flat``
@@ -183,6 +185,16 @@ class SyncAlgorithm:
                     ws[i] = S.tree_slice(new, i)
                 return state, 1
         return rnd
+
+    # -- LM trainer background program ----------------------------------------
+    def make_sync_step(self, cfg: S.SyncConfig) -> Callable:
+        """``sync_step(stack, algo_state=None) -> (stack, algo_state)``: every
+        replica fired, against the current stack (no launch snapshot). One
+        signature for every algorithm (``algo_state`` is ``init_state``'s)."""
+        def sync_step(stack, algo_state=None):
+            return self.land(stack, algo_state, None, None, cfg)
+
+        return sync_step
 
 
 _REGISTRY: Dict[str, SyncAlgorithm] = {}

@@ -1,0 +1,162 @@
+"""The LM trainer under ShadowSync, the twin of ``repro/core/spmd.py``.
+
+Shadow mode (``"shadow"``): parameters and optimizer state carry a leading
+replica dim R, and each replica trains on its own slice of the batch. No
+operation of replica r's step reads another replica's slice, so the step
+holds no cross-replica traffic; the per-replica losses come back
+unreduced. ``sync_step`` is a separate program that owns all cross-replica
+traffic (``algorithms.SyncAlgorithm.make_sync_step``), run by the caller at
+its own cadence. Baseline mode (``"syncdp"``): one model, one step.
+
+The reference ``vmap``s one replica's step over R and returns new trees,
+which at full width would hold the stack and its optimizer state twice at
+the update. The port loops over the replicas instead: each replica's
+gradients are taken with respect to detached views of its slice (only one
+replica's gradients are alive at a time) and the update is written back
+into the stacks leaf by leaf (``optim.update_in_place``), bitwise the
+functional update. So a step updates ``params`` and ``opt_state`` in place
+and returns them.
+
+The reference's mesh (its ``spmd_axis_name``, the syncdp all-reduce) is not
+ported: one process, one device (ROADMAP queue 1, 'sharding, dry run, mesh
+and roofline'). The audio family raises (ROADMAP queue 1, 'the other LM
+families').
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Tuple
+
+import torch
+
+from repro_torch import optim
+from repro_torch import tree as T
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import algorithms
+from repro_torch.core import sync as S
+from repro_torch.models import transformer
+
+Tree = Any
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family == "audio":
+        raise NotImplementedError(f"{cfg.name}: the audio family (whisper) is not yet ported "
+                                  "(ROADMAP queue 1, 'the other LM families')")
+
+
+def _loss_fn(cfg: ArchConfig, remat_policy: str = "full") -> Callable:
+    _check_family(cfg)
+    transformer.check_remat_policy(remat_policy)
+    return lambda p, b: transformer.loss_fn(p, cfg, b, remat=True, remat_policy=remat_policy)
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, device=None, dtype=None) -> Tree:
+    _check_family(cfg)
+    return transformer.init_params(cfg, gen, device=device, dtype=dtype)
+
+
+def stack_replicas(params: Tree, n: int) -> Tree:
+    """R copies of each leaf, (n, *shape): real copies, since the train step
+    writes into each replica's slice (the reference's broadcast view would
+    alias them)."""
+    return T.map(lambda x: x.unsqueeze(0).repeat(n, *([1] * x.dim())), params)
+
+
+def _accum_grads(loss_fn: Callable, params: Tree, batch: Tree, n_microbatches: int,
+                 grad_dtype=torch.float32) -> Tuple[Tree, torch.Tensor]:
+    """(grads, loss) of ``loss_fn`` at ``params`` (leaves that require
+    grad). With K > 1 microbatches (the batch dim split K ways, in order),
+    the gradients are summed in ``grad_dtype`` and divided by K, as the
+    losses are; with K = 1 the gradients are the raw ones, uncast."""
+    leaves = T.leaves(params)
+    if n_microbatches <= 1:
+        loss = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return T.unflatten(params, list(grads)), loss.detach()
+    k = n_microbatches
+    mb = T.map(lambda x: x.reshape(k, x.shape[0] // k, *x.shape[1:]), batch)
+    acc = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device) for p in leaves]
+    acc_l = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for j in range(k):
+        loss = loss_fn(params, S.tree_slice(mb, j))
+        for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+            a.add_(g.to(grad_dtype))
+        acc_l = acc_l + loss.detach()
+    return T.unflatten(params, [a / float(k) for a in acc]), acc_l / float(k)
+
+
+def make_train_step(
+    cfg: ArchConfig,
+    opt: optim.Optimizer,
+    mode: str,
+    n_microbatches: int = 1,
+    grad_dtype: str = "float32",
+    remat_policy: str = "full",
+) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    loss), updating ``params`` and ``opt_state`` in place. ``"shadow"``:
+    leaves carry a leading replica dim and ``loss`` is (R,); ``"syncdp"``:
+    one model, a scalar ``loss``. The loss runs the training form with full
+    remat, as the reference's does."""
+    if mode not in ("shadow", "syncdp"):
+        raise ValueError(f"unknown mode {mode!r}; expected 'shadow' or 'syncdp'")
+    loss_fn = _loss_fn(cfg, remat_policy)
+    gdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[grad_dtype]
+
+    def one(params, opt_state, batch) -> torch.Tensor:
+        live = T.map(lambda a: a.detach().requires_grad_(), params)
+        grads, loss = _accum_grads(loss_fn, live, batch, n_microbatches, gdt)
+        del live
+        grads = T.leaves(grads)
+        with torch.no_grad():
+            optim.update_in_place(opt, params, opt_state, grads)
+        return loss
+
+    if mode == "shadow":
+        def train_step(params, opt_state, batch):
+            R = T.leaves(params)[0].shape[0]
+            losses = [one(S.tree_slice(params, r), S.tree_slice(opt_state, r),
+                          S.tree_slice(batch, r)) for r in range(R)]
+            return params, opt_state, torch.stack(losses)
+
+        return train_step
+
+    def train_step(params, opt_state, batch):
+        return params, opt_state, one(params, opt_state, batch)
+
+    return train_step
+
+
+def make_sync_step(cfg: ArchConfig, sync_cfg: S.SyncConfig) -> Callable:
+    """The background program; it owns all cross-replica communication.
+    ``sync_step(params_stack, algo_state) -> (params_stack, algo_state)``
+    for every registered algorithm, ``algo_state`` from
+    ``algorithms.get(name).init_state(params, sync_cfg)``."""
+    return algorithms.get(sync_cfg.algo).make_sync_step(sync_cfg)
+
+
+def make_prefill_step(cfg: ArchConfig, s_max: int) -> Callable:
+    """prefill(params, {"tokens": (B, S)}) -> (last logits, cache), without
+    gradients (the prefill form: K9 on the card)."""
+    _check_family(cfg)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        return transformer.prefill(params, cfg, batch["tokens"], s_max)
+
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig) -> Callable:
+    _check_family(cfg)
+
+    @torch.no_grad()
+    def decode(params, cache, token, pos):
+        return transformer.decode_step(params, cfg, cache, token, int(pos))
+
+    return decode
+
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=None, device=None) -> Tree:
+    _check_family(cfg)
+    return transformer.init_cache(cfg, batch, s_max, dtype=dtype, device=device)

@@ -7,7 +7,7 @@ tree packs into the same flat bytes (core/flatspace.py).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +79,17 @@ def lm_params_from_numpy(tree: Tree, device="cpu") -> Tree:
     or bfloat16) -> the port's parameters: the same keys and the same
     stacked ``unit`` tuple (``models/transformer.py``)."""
     return T.map(lambda x: _tensor(x, device), tree)
+
+
+def lm_train_state_from_numpy(stack: Tree, opt_stack: Tree, algo: str, algo_state: Any,
+                              device="cpu") -> Tuple[Tree, Tree, Any]:
+    """The JAX LM trainer's state (``launch/train.py::run_lm``), its arrays as
+    numpy -> the port's (``core/spmd.py``): the replica stack of parameters
+    (leaves (R, ...)), the stacked optimizer state (Adam's ``m``, ``v`` and
+    its (R,) step count ``t``; ``()`` for SGD) and the state of the sync
+    algorithm ``algo`` (``algo_state_from_numpy``)."""
+    return (lm_params_from_numpy(stack, device), lm_params_from_numpy(opt_stack, device),
+            algo_state_from_numpy(algo, algo_state, device))
 
 
 def tree_to_numpy(tree: Tree) -> Tree:

@@ -1,4 +1,6 @@
-"""Training launcher for the port: ``dlrm`` runs the deterministic
+"""Training launcher for the port. ``lm`` trains R replicas of a reduced LM
+(``core/spmd.py``) on the Markov token stream, with the shadow sync every
+``--sync-gap`` iterations; ``dlrm`` runs the deterministic
 ``HogwildSim`` (n trainers x m Hogwild threads on synthetic CTR, shadow or
 fixed-rate sync), or with ``--threaded`` the real-thread
 ``ThreadedShadowRunner`` (the paper's Algorithm 1: trainer threads on
@@ -20,8 +22,10 @@ fault-injection harness), on the CUDA card unless ``--device cpu`` is given.
   python -m repro_torch.launch.train dlrm --threaded --device cpu --tiny --trainers 3 \
       --auto-demote --straggler 2:0.05 --straggler-until 2:20
   python -m repro_torch.launch.train dlrm --threaded --device cpu --tiny --auto-mode
+  python -m repro_torch.launch.train lm --device cpu --iters 20 --algo bmuf
 
-The flags are the JAX launcher's (``repro/launch/train.py dlrm``);
+The flags are the JAX launcher's (``repro/launch/train.py dlrm`` and
+``lm``), plus ``--device``;
 ``--algo`` takes every registered sync algorithm (easgd, ma, bmuf,
 gossip). ``--membership-schedule`` drives the sim's elastic membership and,
 as in the JAX launcher, is ignored with ``--threaded``, as are ``--save``
@@ -46,9 +50,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+import torch
+
 from repro_torch import optim
+from repro_torch import tree as T
 from repro_torch.configs import dlrm_ctr
-from repro_torch.core import algorithms
+from repro_torch.configs.base import ARCH_IDS, get_config, reduced
+from repro_torch.core import algorithms, spmd
 from repro_torch.core.elp import elp
 from repro_torch.core.membership import FaultSpec
 from repro_torch.core.modeswitch import ModeConfig, ModeController
@@ -56,7 +64,9 @@ from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.core.runners import HogwildSim, ThreadedShadowRunner
 from repro_torch.core.scheduler import PolicyConfig, StragglerPolicy
 from repro_torch.core.sync import SyncConfig
+from repro_torch.data import tokens as tok
 from repro_torch.embeddings.cache import CacheConfig
+from repro_torch.kernels.backend import resolve_device
 
 
 def _parse_slot_map(spec, cast):
@@ -246,6 +256,44 @@ def run_dlrm(args) -> dict:
             "avg_sync_gap": out["avg_sync_gap"]}
 
 
+def run_lm(args) -> dict:
+    """The reference's ``run_lm``: R replicas of ``reduced(arch)`` train on
+    the stream's batches (R x batch-size sequences an iteration), the sync
+    step lands every ``--sync-gap`` iterations. Returns the mean loss of the
+    first and last five iterations, and every iteration's mean loss."""
+    device = resolve_device(args.device)
+    cfg = reduced(get_config(args.arch))
+    opt = optim.make(args.optimizer, args.lr)
+    R = args.replicas
+    sync_cfg = SyncConfig(algo=args.algo, alpha=args.alpha).validate()
+    params = spmd.init_params(cfg, torch.Generator().manual_seed(args.seed), device=device)
+    stack = spmd.stack_replicas(params, R)
+    opt_stack = spmd.stack_replicas(opt.init(params), R)
+    train_step = spmd.make_train_step(cfg, opt, "shadow")
+    sync_step = spmd.make_sync_step(cfg, sync_cfg)
+    # opaque per-algorithm state (sync-PS copy, momentum, counter, or None)
+    algo_state = algorithms.get(args.algo).init_state(params, sync_cfg)
+    del params
+
+    trans = tok.make_transition(cfg.vocab_size, seed=args.seed)
+    losses = []
+    t0 = time.perf_counter()
+    for it in range(args.iters):
+        b = tok.gen_batch(trans, args.seed, it, args.batch_size * R, args.seq_len)
+        batch = T.map(lambda x: x.reshape(R, args.batch_size, *x.shape[1:]).to(device), b)
+        stack, opt_stack, loss = train_step(stack, opt_stack, batch)
+        losses.append(float(loss.mean()))
+        # the background cadence (the host loop's quantisation of the shadow thread)
+        if (it + 1) % args.sync_gap == 0:
+            stack, algo_state = sync_step(stack, algo_state)
+    wall = time.perf_counter() - t0
+    print(f"{args.arch} x{R} replicas [{args.algo}]: loss "
+          f"{np.mean(losses[:5]):.4f} -> {np.mean(losses[-5:]):.4f} "
+          f"({args.iters} iters, {wall:.1f}s, EPS {args.iters * args.batch_size * R / wall:.1f})")
+    return {"loss_start": float(np.mean(losses[:5])), "loss_end": float(np.mean(losses[-5:])),
+            "losses": losses}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -297,13 +345,33 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--cache-rows", type=int, default=None)
     d.add_argument("--lookahead", type=int, default=2)
     d.add_argument("--pipeline-depth", type=int, default=1)
+
+    lm = sub.add_parser("lm")
+    lm.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    lm.add_argument("--arch", choices=list(ARCH_IDS), default="minicpm-2b")
+    lm.add_argument("--algo", choices=list(algorithms.names()), default="easgd")
+    lm.add_argument("--replicas", type=int, default=2)
+    lm.add_argument("--batch-size", type=int, default=8)
+    lm.add_argument("--seq-len", type=int, default=128)
+    lm.add_argument("--iters", type=int, default=60)
+    lm.add_argument("--sync-gap", type=int, default=5)
+    lm.add_argument("--alpha", type=float, default=0.5)
+    lm.add_argument("--lr", type=float, default=1e-3)
+    lm.add_argument("--optimizer", default="adam", choices=sorted(optim.REGISTRY))
+    lm.add_argument("--seed", type=int, default=0)
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Runs the subcommand and prints its result as JSON (for ``lm``, the
+    reference's keys; the returned dict adds every iteration's loss)."""
     args = build_parser().parse_args(argv)
-    out = run_dlrm(args)
-    print(json.dumps(out, default=float))
+    if args.cmd == "lm":
+        out = run_lm(args)
+        print(json.dumps({k: out[k] for k in ("loss_start", "loss_end")}))
+    else:
+        out = run_dlrm(args)
+        print(json.dumps(out, default=float))
     return out
 
 

@@ -1,21 +1,31 @@
 """Layer helpers (the parts of ``repro/models/layers.py`` that DLRM and the
-dense LM serving path need).
+dense LM serving and training paths need).
 
 Parameters are plain dicts of tensors, as in the reference. Linear weights
 are ``(d_in, d_out)`` and applied as ``x @ w``. The reference's sharding
 constraints (``constrain``) are identity without a mesh and are dropped;
-``layernorm``, ``gelu_mlp`` and ``chunked_softmax_ce`` wait for the slices
-that use them.
+``layernorm`` and ``gelu_mlp`` wait for the slice that uses them. Where the
+reference wraps a block in ``jax.checkpoint``, the port uses
+``torch.utils.checkpoint`` without re-entry (``remat``).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import gqa_attention_op
 
 Params = dict
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    instead of saved (the reference's ``jax.checkpoint``). Non-re-entrant,
+    so tensors ``fn`` closes over get their gradients and views stay views;
+    the blocks draw no random numbers, so no RNG state is kept."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -101,21 +111,58 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def _sdpa_block(q, k, v, mask, scale):
-    """q: (B,Sq,H,D), k/v: (B,Sk,H,D), mask: (Sq,Sk) or (B,1,Sq,Sk) bool."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    scores = scores.masked_fill(~mask, -1e30)
+    """q: (B,Sq,H,D), k/v: (B,Sk,H,D), mask: (Sq,Sk) or (B,1,Sq,Sk) bool.
+    The scale and the mask go in place on the f32 scores (neither one's
+    backward reads them): two f32 (Sq, Sk) tiles fewer a block."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float().mul_(scale)
+    scores = scores.masked_fill_(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def refuse_on_card(cfg) -> None:
-    """The card's full-sequence attention is K9: causal self-attention over
-    every earlier position. A sliding window is refused there."""
+    """The card's prefill attention is K9: causal self-attention over every
+    earlier position. A sliding window is refused there (the training form
+    takes it on the card, as the reference does)."""
     if cfg.sliding_window is not None:
         raise NotImplementedError(
-            f"sliding-window attention (window {cfg.sliding_window}) on the card is not yet "
-            "ported: the flash-attention kernel has no window (ROADMAP queue 1, 'the other LM "
-            "families')")
+            f"sliding-window attention (window {cfg.sliding_window}) in the card's prefill is "
+            "not yet ported: the flash-attention kernel has no window (ROADMAP queue 1, 'the "
+            "other LM families')")
+
+
+Q_CHUNK = 1024  # the training form's query rows a block (the reference's default)
+
+
+def _train_attention(q, k, v, positions, cfg) -> torch.Tensor:
+    """The reference's full-sequence path (``repro/models/layers.py:147-185``):
+    ``_sdpa_block`` over query chunks of ``Q_CHUNK`` rows (the largest chunk
+    that divides S when ``Q_CHUNK`` does not), each chunk recomputed in the
+    backward pass, so a (chunk, S) score tile is the largest live one.
+    Plain torch, differentiable on every device."""
+    B, S, H, hd = q.shape
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    scale = hd ** -0.5
+
+    def block_mask(q_pos):
+        m = q_pos[:, None] >= positions[None, :]
+        if cfg.sliding_window is not None:
+            m &= q_pos[:, None] - positions[None, :] < cfg.sliding_window
+        return m
+
+    q_chunk = Q_CHUNK
+    if S % q_chunk:
+        q_chunk = next((c for c in range(min(q_chunk, S), 0, -1) if S % c == 0), S)
+    if S <= q_chunk:
+        return _sdpa_block(q, k, v, block_mask(positions), scale)
+
+    def body(qi, pi):
+        return _sdpa_block(qi, k, v, block_mask(pi), scale)
+
+    outs = [remat(body, q[:, i:i + q_chunk], positions[i:i + q_chunk])
+            for i in range(0, S, q_chunk)]
+    return torch.cat(outs, dim=1)
 
 
 def attention_apply(
@@ -126,23 +173,30 @@ def attention_apply(
     positions: torch.Tensor,
     return_kv: bool = False,
     rope=None,
+    train: bool = False,
 ):
-    """Full-sequence causal self-attention (prefill), through
-    ``gqa_attention_op`` after RoPE: K9 on the card, its plain version on the
-    CPU. A sliding window runs the reference's plain path (CPU only). With
-    ``return_kv`` also returns the roped k and the v, (B, S, n_kv, hd) each,
-    for the cache (the reference recomputes them; they are the same
-    tensors). ``rope``: the positions' ``rope_tables``."""
+    """Full-sequence causal self-attention after RoPE, in one of two forms
+    the caller picks. The prefill form (``train=False``) goes through
+    ``gqa_attention_op``: K9 on the card, its plain version on the CPU; K9
+    has no backward, so its wrapper refuses a card input that needs a
+    gradient. A sliding window runs the reference's plain path there (CPU
+    only). The training form (``train=True``) is the reference's
+    query-chunked ``_sdpa_block`` (``_train_attention``), windowed or not,
+    on any device. With ``return_kv`` also returns the roped k and the v,
+    (B, S, n_kv, hd) each, for the cache (the reference recomputes them;
+    they are the same tensors). ``rope``: the positions' ``rope_tables``."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    if x.is_cuda:
+    if x.is_cuda and not train:
         refuse_on_card(cfg)
     q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
     k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta, rope)
     k = apply_rope(k, positions, cfg.rope_theta, rope)
-    if cfg.sliding_window is None:
+    if train:
+        out = _train_attention(q, k, v, positions, cfg)
+    elif cfg.sliding_window is None:
         out = gqa_attention_op(q, k, v, causal=True)
     else:  # causal within the window: the reference's plain path
         n_rep = cfg.n_heads // cfg.n_kv_heads
@@ -220,3 +274,54 @@ def embed_init(draw, vocab: int, d_model: int, dtype) -> Params:
 
 def embed_lookup(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens]
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token-level CE. logits: (..., V) any float dtype; labels integer."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+def chunked_softmax_ce(
+    x: torch.Tensor,
+    w_head: torch.Tensor,
+    labels: torch.Tensor,
+    weights: torch.Tensor,
+    vocab_limit: int,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Chunked softmax-CE: the (B, S, V) logits are never materialised.
+    Sequence chunks of ``chunk`` positions (S padded up to a multiple) each
+    compute their (B, chunk, V) logits in ``x``'s dtype, then in f32, and
+    are recomputed in the backward pass. x: (B, S, d); w_head: (d,
+    V_padded); labels/weights: (B, S). Columns at or above ``vocab_limit``
+    (padding) are masked out. The weighted sum over chunks, in order, is
+    divided by ``max(sum(weights), 1)``."""
+    B, S, _ = x.shape
+    V = w_head.shape[-1]
+    chunk = min(chunk, S)
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        weights = torch.nn.functional.pad(weights, (0, pad))
+    masked = torch.arange(V, device=x.device) >= vocab_limit
+
+    def body(xc, lc, wc):
+        logits = (xc @ w_head).float().masked_fill(masked, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        return ((lse - gold) * wc).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, n * chunk, chunk):
+        total = total + remat(body, x[:, i:i + chunk], labels[:, i:i + chunk],
+                              weights[:, i:i + chunk])
+    return total / torch.clamp(weights.sum(), min=1.0)

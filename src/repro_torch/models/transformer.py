@@ -1,5 +1,6 @@
-"""Decoder stack for the dense family: full-sequence ``forward``, ``prefill``
-(forward + cache build) and ``decode_step`` (one token against the cache).
+"""Decoder stack for the dense family: full-sequence ``forward`` and the
+next-token ``loss_fn`` (train), ``prefill`` (forward + cache build) and
+``decode_step`` (one token against the cache).
 
 The reference's stacked layout is kept: layers are grouped by the repeating
 ``layer_pattern`` unit and each unit position's leaves carry a leading
@@ -25,11 +26,13 @@ from repro_torch.models.layers import (
     attention_apply,
     attention_decode,
     attention_init,
+    chunked_softmax_ce,
     dense_init,
     dtype_of,
     embed_init,
     embed_lookup,
     init_attention_cache,
+    remat,
     rmsnorm,
     rmsnorm_init,
     rope_tables,
@@ -134,13 +137,27 @@ def _rope(cfg: ArchConfig, positions: torch.Tensor):
         if cfg.rope_theta > 0 else None
 
 
-def _apply_layer_full(lp: Params, x, cfg: ArchConfig, positions, rope, cache=None):
+def check_remat_policy(policy: str) -> None:
+    """``"full"`` recomputes a whole unit. The reference's ``"save_comm"``
+    keeps the activations that follow a tensor-parallel collective; the
+    port shards nothing yet, so it is refused."""
+    if policy == "save_comm":
+        raise NotImplementedError(
+            "remat_policy='save_comm' keeps post-collective activations; the port has no "
+            "sharding yet (ROADMAP queue 1, 'sharding, dry run, mesh and roofline')")
+    if policy != "full":
+        raise ValueError(f"unknown remat policy {policy!r}; expected 'full' or 'save_comm'")
+
+
+def _apply_layer_full(lp: Params, x, cfg: ArchConfig, positions, rope, cache=None,
+                      train: bool = False):
     """One block, full sequence. With ``cache`` ({"k","v"} of one layer,
     (B, S_max, n_kv, hd)), writes this layer's roped k and v into its first
-    S positions."""
+    S positions. ``train`` picks the training form of attention."""
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
     if cache is None:
-        mixed = attention_apply(lp["mixer"], h, cfg, positions=positions, rope=rope)
+        mixed = attention_apply(lp["mixer"], h, cfg, positions=positions, rope=rope,
+                                train=train)
     else:
         mixed, k, v = attention_apply(lp["mixer"], h, cfg, positions=positions, rope=rope,
                                       return_kv=True)
@@ -157,32 +174,81 @@ def _layer(unit_lp: Params, r: int) -> Params:
     return T.map(lambda a: a[r], unit_lp)
 
 
-def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, cache=None) -> torch.Tensor:
+def _layers(unit_lp: Params, repeats: int):
+    """Every repeat's tree of one unit position, from one ``unbind`` of each
+    stacked leaf: in the backward pass the layers' gradients are stacked
+    once, where indexing each repeat would add a leaf-sized gradient a
+    layer."""
+    parts = [a.unbind(0) for a in T.leaves(unit_lp)]
+    return [T.unflatten(unit_lp, [p[r] for p in parts]) for r in range(repeats)]
+
+
+def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, cache=None,
+                train: bool = False, remat_units: bool = False) -> torch.Tensor:
+    """The stack, repeat by repeat. ``remat_units`` recomputes each repeat's
+    unit in the backward pass (the reference's ``jax.checkpoint(unit_body)``
+    inside its scan), so a unit's input is the only activation it keeps."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     rope = _rope(cfg, positions)
     unit, repeats = _unit_info(cfg)
-    for r in range(repeats):
+    layers = [_layers(params["unit"][pos], repeats) for pos in range(unit)]
+
+    def unit_body(x, r):
         for pos in range(unit):
             c = None if cache is None else _layer(cache[pos], r)
-            x = _apply_layer_full(_layer(params["unit"][pos], r), x, cfg, positions, rope, c)
+            x = _apply_layer_full(layers[pos][r], x, cfg, positions, rope, c, train)
+        return x
+
+    for r in range(repeats):
+        x = remat(unit_body, x, r) if remat_units else unit_body(x, r)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            train: bool = False, remat: bool = False, remat_policy: str = "full",
             return_cache: bool = False, return_hidden: bool = False):
     """tokens: (B, S). Returns (logits, aux_loss[, cache]); with
     ``return_hidden`` the final-norm hidden states instead of logits. The
     cache is stacked over repeats, (repeats, B, S, n_kv, hd) per leaf, as the
-    reference's scan stacks it. No remat: this slice runs no backward."""
+    reference's scan stacks it.
+
+    ``train`` picks the training form of attention (the reference's
+    query-chunked plain attention, differentiable on the card) over the
+    prefill form (K9 on the card, which has no backward); the caller asks
+    for it, it is never inferred from the inputs. ``remat`` (training form
+    only) recomputes each unit in the backward pass; ``remat_policy``
+    "full" is the one the port computes (``check_remat_policy``)."""
     check_ported(cfg)
+    if remat:
+        check_remat_policy(remat_policy)
+        if not train:
+            raise ValueError("remat recomputes the training form: pass train=True")
     x = embed_lookup(params["embed"], tokens)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, S, device=x.device) if return_cache else None
-    x = _run_layers(params, cfg, x, cache)
+    x = _run_layers(params, cfg, x, cache, train=train, remat_units=remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     out = x if return_hidden else _mask_padded_logits(_head(params, cfg, x), cfg)
     return (out, aux, cache) if return_cache else (out, aux)
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch, *, remat: bool = False,
+            remat_policy: str = "full", ce_chunk: int = 512) -> torch.Tensor:
+    """Next-token LM loss through the training form, with the chunked
+    softmax-CE (the (B, S, V) logits never exist). batch: {"tokens": (B, S)}.
+    Position t predicts token t + 1; the last position has weight 0. The
+    head is the embedding table's transpose when tied."""
+    tokens = batch["tokens"]
+    hidden, aux = forward(params, cfg, tokens, train=True, remat=remat,
+                          remat_policy=remat_policy, return_hidden=True)
+    B, S = tokens.shape
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    weights = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
+    weights[:, -1] = 0.0
+    head = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    return chunked_softmax_ce(hidden, head, labels, weights, cfg.vocab_size,
+                              chunk=ce_chunk) + aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=None, device=None) -> Any:

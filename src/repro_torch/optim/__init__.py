@@ -2,10 +2,11 @@
 ``repro/optim/__init__.py``: ``state = opt.init(params); params, state =
 opt.update(params, state, grads)``. Updates are functional (new tensors), and
 elementwise, so a tree with a leading replica dim updates every replica at
-once."""
+once. ``update_in_place`` applies an optimizer's ``update`` one leaf at a
+time and writes the result back, for trees too large to hold twice."""
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
 
@@ -87,6 +88,71 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return T.map(step, params, m, v), {"m": m, "v": v, "t": t}
 
     return Optimizer(init, update, "adam")
+
+
+def update_in_place(opt: Optimizer, params: Tree, state: Tree, grads: List) -> None:
+    """``opt.update(params, state, grads)`` written back into ``params`` and
+    ``state``, one leaf at a time, so only one leaf's new values are alive
+    at once; bitwise the functional update (the same calls, a leaf each).
+    ``params`` and ``state`` may be views into larger stacks (a replica's
+    slice). ``grads`` is the list of the leaves' gradients in ``T.leaves``
+    order; each entry is dropped once its leaf is written. A subtree of
+    ``state`` shaped as ``params`` (moments, accumulators) is taken leaf by
+    leaf; its other leaves (Adam's step count) are shared by every leaf and
+    written after the last one has read them."""
+    shape = _shape(params)
+    leaves = T.leaves(params)
+    for i, p in enumerate(leaves):
+        new_p, new_st = opt.update(p, _pick(state, shape, i), grads[i])
+        grads[i] = None
+        p.copy_(new_p)
+        _write(state, new_st, shape, i, last=i == len(leaves) - 1)
+
+
+def _shape(tree: Tree) -> Tree:
+    return T.map(lambda _: None, tree)
+
+
+def _pick(state: Tree, shape: Tree, i: int) -> Tree:
+    """``state`` for leaf ``i``: params-shaped subtrees give their ``i``-th leaf."""
+    if _shape(state) == shape:
+        return T.leaves(state)[i]
+    if isinstance(state, dict):
+        return {k: _pick(v, shape, i) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return type(state)(_pick(v, shape, i) for v in state)
+    return state
+
+
+def _write(state: Tree, new: Tree, shape: Tree, i: int, last: bool) -> None:
+    """``_pick``'s inverse: leaf ``i`` of each params-shaped subtree, and
+    the shared leaves once ``last``."""
+    if _shape(state) == shape:
+        T.leaves(state)[i].copy_(new)
+    elif isinstance(state, dict):
+        for k in state:
+            _write(state[k], new[k], shape, i, last)
+    elif isinstance(state, (tuple, list)):
+        for s, n in zip(state, new):
+            _write(s, n, shape, i, last)
+    elif last:
+        state.copy_(new)
+
+
+def wsd_schedule(peak_lr: float, warmup: int, stable: int, decay: int
+                 ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Warmup-Stable-Decay schedule (MiniCPM [arXiv:2404.06395]): linear
+    warmup to ``peak_lr``, flat for ``stable`` steps, then linear decay to
+    a tenth of it over ``decay`` steps. ``lr_at`` takes a step tensor."""
+
+    def lr_at(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = peak_lr * torch.clamp(step / max(warmup, 1), max=1.0)
+        frac = torch.clamp((step - warmup - stable) / max(decay, 1), 0.0, 1.0)
+        return torch.where(step < warmup + stable, warm,
+                           peak_lr * (1.0 - frac) + 0.1 * peak_lr * frac)
+
+    return lr_at
 
 
 REGISTRY = {"sgd": sgd, "momentum": momentum, "adagrad": adagrad, "rmsprop": rmsprop, "adam": adam}

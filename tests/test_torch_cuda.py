@@ -832,3 +832,78 @@ def test_reduced_phi3_serving_on_the_card_follows_the_cpu(gen):
     assert torch.equal(card["tokens"].cpu(), cpu["tokens"])
     for key in ("prefill_logits", "last_logits"):
         torch.testing.assert_close(card[key].cpu(), cpu[key], rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_refuses_an_input_that_needs_a_gradient(gen):
+    """K9 has no backward: a CUDA input that requires grad is refused while
+    grad mode is on, and runs under no_grad."""
+    q = torch.randn((1, 64, 2, 64), generator=gen).cuda().requires_grad_()
+    k, v = (torch.randn((1, 64, 2, 64), generator=gen).cuda() for _ in range(2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        gqa_attention_op(q, k, v)
+    with torch.no_grad():
+        torch.testing.assert_close(gqa_attention_op(q, k, v), gqa_attention_ref(q, k, v),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def _lm_ops():
+    from repro_torch.kernels.bmuf_update.ops import bmuf_sync_op, bmuf_sync_rows_op
+    from repro_torch.kernels.gossip_update.ops import gossip_pair_flat_op, gossip_round_op
+    from repro_torch.kernels.ma_update import ops as ma_ops
+
+    return (embedding_bag_op, sparse_adagrad_op, easgd_round_op, easgd_pair_flat_op,
+            ma_ops.replica_mean_op, ma_ops.replica_mean_rows_op, ma_ops.ma_sync_op,
+            ma_ops.ma_sync_rows_op, bmuf_sync_op, bmuf_sync_rows_op, gossip_pair_flat_op,
+            gossip_round_op, interaction_op, gqa_attention_op)
+
+
+@pytest.mark.parametrize("algo", ["easgd", "gossip"])
+def test_reduced_lm_step_on_the_card_follows_the_cpu(gen, algo):
+    """Two shadow steps and a sync of a reduced minicpm-2b (f32, TF32 off,
+    S=1100 so that attention runs two query chunks), the same weights and
+    tokens on the card and the CPU: losses and every weight within the
+    trajectory tolerance; no kernel of the port launches on the card."""
+    from repro_torch.core import spmd
+    from repro_torch.data import tokens
+
+    cfg = reduced(get_config("minicpm-2b"))
+    params = spmd.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    trans = tokens.make_transition(cfg.vocab_size, seed=0)
+    toks = tokens.gen_batch(trans, 0, 0, 2 * 2, 1100)["tokens"].reshape(2, 2, 1100)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            stack = spmd.stack_replicas(T.map(lambda x: x.to(dev), params), 2)
+            opt = optim.sgd(0.1)
+            step = spmd.make_train_step(cfg, opt, "shadow")
+            sc = sync.SyncConfig(algo=algo, alpha=0.5)
+            ost, state = (), algorithms.get(algo).init_state(T.map(lambda x: x[0], stack), sc)
+            ops = _lm_ops()
+            before = [op.launches for op in ops]
+            losses = []
+            for _ in range(2):
+                stack, ost, loss = step(stack, ost, {"tokens": toks.to(dev)})
+                losses.append(loss.cpu())
+            stack, state = spmd.make_sync_step(cfg, sc)(stack, state)
+            assert [op.launches for op in ops] == before
+            out[dev] = (torch.stack(losses), T.map(lambda x: x.cpu(), stack))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-5)
+    for a, b in zip(T.leaves(out["cuda"][1]), T.leaves(out["cpu"][1])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_the_lm_launcher_on_the_card_launches_no_kernel(gen):
+    """The training window of ``launch/train.py lm`` on the card: the
+    training form of attention and the pytree syncs, no K1-K9 launch; a
+    finite loss that falls."""
+    from repro_torch.launch import train
+
+    ops = _lm_ops()
+    before = [op.launches for op in ops]
+    out = train.main(["lm", "--iters", "10", "--batch-size", "4", "--seq-len", "64"])
+    assert [op.launches for op in ops] == before
+    assert all(math.isfinite(x) for x in out["losses"]) and out["loss_end"] < out["loss_start"]

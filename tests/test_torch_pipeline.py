@@ -422,7 +422,21 @@ def test_pipelined_sim_follows_the_jax_pipelined_sim(jax_stream, engine, depth, 
                schedule=list(JAX_SCHED) if elastic else None)
     out = sim.run(JAX_ITERS, state=interop.sim_state_from_numpy(*init, device="cpu"))
     np.testing.assert_allclose(out["train_loss"], j_loss, **TRAJ)
-    assert out["pipeline_stats"] == j_stats
+    stats = out["pipeline_stats"]
+    if not elastic:
+        assert stats == j_stats
+    else:
+        # A membership drain discards the staged entries (one a drained
+        # step at depth 2, each of the sim's one lookup unit); the worker
+        # skips a discarded job it has not started, uncounted, and counts
+        # the hazards of one it already ran (core/pipeline.py::_worker_loop,
+        # the same in the JAX package). So each package's hazard_serialized
+        # lies in [H - drains, H], H the count with every job run, and the
+        # two differ by at most the drains; every other key is exact.
+        assert {k: v for k, v in stats.items() if k != "hazard_serialized"} == \
+            {k: v for k, v in j_stats.items() if k != "hazard_serialized"}
+        assert j_stats["drains"] > 0
+        assert abs(stats["hazard_serialized"] - j_stats["hazard_serialized"]) <= j_stats["drains"]
     assert j_stats["overlapped"] > 0
     for k in ("table", "acc"):
         np.testing.assert_allclose(out["state"].emb_state[k].numpy(), j_emb[k], **TRAJ)

@@ -87,9 +87,24 @@ Phases, each of which asserts (any failure exits non-zero):
      K1-K9 launch in the training window; then one step and a sync of a
      reduced minicpm-2b on the card against the CPU, its weights and Adam
      state carried in as numpy (``interop.lm_train_state_from_numpy``);
-  9. the kernel table as one JSON line, then the result line.
+     (phase 7 ends with cell 12: the same phi3 weights under CONFIG_SWA,
+     window 4,096, one 6,144-token prompt through the windowed prefill's
+     query-chunked plain path, no K9 launch, then 16 greedy tokens);
+  9. the ssm, MoE and hybrid families: mamba2-780m at full width served as
+     phase 7 serves (cell 10: 5 timed prefills of B=4 x 2048, 31 decode
+     steps, profiled, no K1-K9 launch); one of its layers at B=1 x 512 in
+     f32, the chunked scan against 512 decode steps and its gradients
+     finite; R=2 replicas of it trained as phase 8 trains minicpm-2b (every
+     leaf finite after every step, a falling loss); phi3.5-moe's widths at
+     16 of its 32 layers served (cell 11: K9 once a layer, the assignments
+     dropped per layer at capacity 1.25, two prefills bitwise equal); then
+     reduced mamba2, jamba, phi3.5-moe, kimi-k2 and a windowed phi3 on the
+     card against the CPU (greedy tokens, logits within 2e-4, one shadow
+     step and a sync at the trajectory tolerance);
+ 10. the kernel table as one JSON line, then the result line.
 """
 import cProfile
+import dataclasses
 import gc
 import json
 import math
@@ -124,6 +139,10 @@ SYNC_TOL = 1e-6  # the same lerps; nvcc may contract a multiply-add into one FMA
 # the serving path: phi3-medium-14b at full width, B prompts of PROMPT tokens
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "phi3-medium-14b", 4, 2048, 32
 PREFILL_REPS = 5  # timed prefills after the warm-up at the same shape; the median is reported
+# cell 12: phi3-medium-14b's CONFIG_SWA (window 4,096) on the serving
+# weights, one prompt of 6,144 tokens (six query chunks, the window binding
+# in the last two), 16 greedy tokens, 3 timed prefills
+SWA_PROMPT, SWA_GEN, SWA_REPS = 6144, 16, 3
 # K9 tolerances (atol = rtol): f32 the reference's own (tests/test_kernels.py)
 ATTN_TOL = {"float32": 2e-4}
 # bf16 on phi3's prefill shape: outputs there are ~0.04, so the reference's
@@ -153,9 +172,12 @@ PIPE_WIDE_HOT, PIPE_THREADED_ITERS, PIPE_ONE_ITERS = 1536, 16, 10
 # others') for its first STRAGGLE_UNTIL iterations; the busy-clock meters'
 # window, the policy's window and probation, and the controller's window
 # and dwell are set in such iterations too, so the phase holds at any pace
-# of the card (re-admission came at about 18 of them on the H100)
+# of the card (re-admission came at about 18 of them on the H100). The run
+# is 64 iterations: the pace is measured over 10 iterations on a shared
+# host, and one measured at 0.63 of the run's own pace stretched those
+# windows past the end of a 32-iteration run
 STRAGGLE_SLEEP, STRAGGLE_METER, STRAGGLE_WINDOW = 2.0, 8.0, 2.0
-STRAGGLE_UNTIL, STRAGGLE_ITERS = 4, 32
+STRAGGLE_UNTIL, STRAGGLE_ITERS = 4, 64
 MODE_ITERS, MODE_SIM_ITERS = 16, 14
 MODE_SCRIPT = ((3, "fixed_rate"), (9, "shadow"))  # the sim's scripted handoffs
 # lockdep_path: the cached, pipelined fixed_rate run's iterations a trainer
@@ -181,6 +203,20 @@ LM_WARM, LM_ITERS, LM_GAP, LM_LR = 2, 10, 5, 1e-3
 # would be 122,753^2 x 4 B = 60 GB, so the chain runs over the first 4,096
 # ids (64 MiB), valid ids of the full model
 LM_STREAM_VOCAB = 4096
+
+# the ssm, MoE and hybrid families. Cell 10: mamba2-780m at full width, no
+# cut (48 layers, d_model 1,536, 48 SSD heads of 64, d_state 128, chunk 256,
+# vocab 50,280 padded to 50,432, tied, bf16): served as phase 7 serves, and
+# trained as cell 9 is (LM_R x LM_B x LM_S, Adam, shadow EASGD). One of its
+# layers at B=1 x SCAN_L (f32) holds the chunked scan against decode steps.
+# Cell 11: phi3.5-moe's widths (d_model 4,096, 32/8 heads of 128, 16
+# experts top-2 of d_ff 6,400, vocab 32,064 padded to 32,256, untied,
+# bf16) with its depth cut from 32 to 16 layers (42.1 GB; all 32 are 84
+# GB), served. Then each family reduced on the card against the CPU.
+FAM_SSM_ARCH, FAM_MOE_ARCH, FAM_MOE_LAYERS = "mamba2-780m", "phi3.5-moe-42b-a6.6b", 16
+SCAN_L, SCAN_TOL = 512, 2e-3  # the reference test's chunked-vs-sequential bound
+FAM_REFERENCE = ("mamba2-780m", "jamba-1.5-large-398b", "phi3.5-moe-42b-a6.6b",
+                 "kimi-k2-1t-a32b", "phi3-medium-14b CONFIG_SWA")
 
 # torch.profiler traces: the marker kernel (torch.cuda._sleep's) that opens
 # and closes the recorded run, its length, the card's clock for the pad
@@ -966,14 +1002,28 @@ def k9_in_context(torch, q, k, v, before, reps=50):
     return {"k9_ms": k9_ms, "calls": reps, **clocks.summary()}
 
 
+def layer0_qkv(torch, cfg, params, prompts):
+    """Layer 0's normed input and the roped q, k, v that its prefill hands
+    K9 for ``prompts``, computed as ``layers.attention_apply`` does."""
+    from repro_torch.models import layers, transformer
+
+    lp = transformer._layer(params["unit"][0], 0)
+    x = layers.rmsnorm(lp["norm1"], layers.embed_lookup(params["embed"], prompts), cfg.norm_eps)
+    (Bs, S), hd, mp = prompts.shape, cfg.resolved_head_dim, lp["mixer"]
+    pos = torch.arange(S, device=prompts.device)
+    q = layers.apply_rope((x @ mp["wq"]).reshape(Bs, S, cfg.n_heads, hd), pos, cfg.rope_theta)
+    k = layers.apply_rope((x @ mp["wk"]).reshape(Bs, S, cfg.n_kv_heads, hd), pos, cfg.rope_theta)
+    v = (x @ mp["wv"]).reshape(Bs, S, cfg.n_kv_heads, hd)
+    return x, q, k, v
+
+
 def serving_phase(torch, mem_rate, all_ops, path_counts):
     """Phase 7. Returns the K9 table row (launches filled from the path)."""
-    import dataclasses
-
     from repro_torch import tree as T
+    from repro_torch.configs import phi3_medium_14b
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.launch import serve
-    from repro_torch.models import layers, transformer
+    from repro_torch.models import transformer
 
     # K9 at the reference tests' shapes, f32 and bf16
     gen = torch.Generator().manual_seed(4)
@@ -986,27 +1036,11 @@ def serving_phase(torch, mem_rate, all_ops, path_counts):
 
     # phi3-medium-14b at full width, its weights drawn on the card
     cfg = get_config(SERVE_ARCH)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = transformer.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                                     device="cuda")
-    torch.cuda.synchronize()
-    n_par = transformer.n_params(params)
-    weight_bytes = sum(t.numel() * t.element_size() for t in T.leaves(params))
-    emit({"phase": "serve_setup", "arch": cfg.name, "dtype": cfg.dtype, "params": n_par,
-          "weights_GB": weight_bytes / 1e9, "init_s": time.perf_counter() - t0,
-          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    params, weight_bytes = draw_weights(torch, cfg, "serve")
     prompts = serve.make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=0).cuda()
 
     # K9 on layer 0's own roped q/k/v (bf16), timed beside SDPA and the plain version
-    lp = transformer._layer(params["unit"][0], 0)["mixer"]
-    x = layers.rmsnorm(transformer._layer(params["unit"][0], 0)["norm1"],
-                       layers.embed_lookup(params["embed"], prompts), cfg.norm_eps)
-    pos = torch.arange(SERVE_PROMPT, device="cuda")
-    hd, Bs, S = cfg.resolved_head_dim, SERVE_B, SERVE_PROMPT
-    q = layers.apply_rope((x @ lp["wq"]).reshape(Bs, S, cfg.n_heads, hd), pos, cfg.rope_theta)
-    k = layers.apply_rope((x @ lp["wk"]).reshape(Bs, S, cfg.n_kv_heads, hd), pos, cfg.rope_theta)
-    v = (x @ lp["wv"]).reshape(Bs, S, cfg.n_kv_heads, hd)
+    x, q, k, v = layer0_qkv(torch, cfg, params, prompts)
     chk = check_attention(torch, q, k, v, True, mem_rate, timed=True)
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
@@ -1030,61 +1064,38 @@ def serving_phase(torch, mem_rate, all_ops, path_counts):
     del q, k, v, x, x2, chk, flush
     torch.cuda.empty_cache()
 
-    # the main path: launch/serve.py's warm-up at the timed shape, then
-    # PREFILL_REPS timed prefills + greedy decode from the last one's cache
-    serve.warmup(params, cfg, prompts)
+    # the main path (cell 4), profiled
+    del prompts
+    served, _ = serve_cell(torch, cfg, params, weight_bytes, "serve_phi3", all_ops, path_counts,
+                           cfg.n_layers, mem_rate)
+    emit(served)
+    row["path_ms"] = served["prefill_profile"]["k9_ms_per_launch"]  # a launch in the prefill
+    del served
+    torch.cuda.empty_cache()
+
+    # cell 12: the same weights under CONFIG_SWA (window 4,096), one prompt
+    # longer than the window: the windowed prefill's query-chunked plain path
+    swa_cfg = phi3_medium_14b.CONFIG_SWA
+    swa_prompts = serve.make_prompts(swa_cfg, 1, SWA_PROMPT, seed=0).cuda()
+    serve.generate(params, swa_cfg, swa_prompts, 2)  # warm-up at the timed shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(all_ops.values())
-    res = serve.generate(params, cfg, prompts, SERVE_GEN, prefill_reps=PREFILL_REPS)
-    counts = path_counts["serve_phi3"] = {kk: op.launches for kk, op in all_ops.items()}
-    # one per layer of each prefill
-    assert counts["flash_attention"] == PREFILL_REPS * cfg.n_layers, counts
-    assert all(c == 0 for kk, c in counts.items() if kk != "flash_attention"), counts
-    finite = bool(torch.isfinite(res["prefill_logits"]).all()
-                  and torch.isfinite(res["last_logits"]).all())
-    assert finite, "non-finite logits"
-    tokens = res["tokens"].cpu()
-    assert tokens.shape == (SERVE_B, SERVE_GEN) and int(tokens.max()) < cfg.vocab_size
-    n_steps = SERVE_GEN - 1
-    emit({"phase": "serve", "arch": cfg.name, "batch": SERVE_B, "prompt_len": SERVE_PROMPT,
-          "gen": SERVE_GEN, "prefill_ms": res["prefill_s"] * 1e3,
+    res = serve.generate(params, swa_cfg, swa_prompts, SWA_GEN, prefill_reps=SWA_REPS)
+    counts = path_counts["serve_swa"] = {kk: op.launches for kk, op in all_ops.items()}
+    assert not any(counts.values()), counts  # K9 has no window: the plain path
+    assert bool(torch.isfinite(res["prefill_logits"]).all()
+                and torch.isfinite(res["last_logits"]).all()), "non-finite logits"
+    emit({"phase": "serve_swa", "arch": f"{cfg.name} CONFIG_SWA",
+          "window": swa_cfg.sliding_window, "batch": 1, "prompt_len": SWA_PROMPT,
+          "gen": SWA_GEN, "prefill_ms": res["prefill_s"] * 1e3,
           "prefill_ms_all": [t * 1e3 for t in res["prefill_s_all"]],
-          "prefill_spread": (max(res["prefill_s_all"]) - min(res["prefill_s_all"]))
-          / res["prefill_s"],
-          "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / res["prefill_s"],
-          "decode_ms_per_step": res["decode_s"] / n_steps * 1e3,
-          "decode_tokens_per_s": n_steps * SERVE_B / res["decode_s"],
-          "k9_launches_per_prefill": counts["flash_attention"] // PREFILL_REPS,
-          "logits_finite": finite,
+          "prefill_tokens_per_s": SWA_PROMPT / res["prefill_s"],
+          "decode_ms_per_step": res["decode_s"] / (SWA_GEN - 1) * 1e3,
+          "decode_tokens_per_s": (SWA_GEN - 1) / res["decode_s"], "k9_launches": 0,
           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
-          "first_tokens": tokens[0, :16].tolist()})
-
-    # where the time goes: one profiled prefill, 8 profiled decode steps
-    with ClockSampler() as clocks:
-        (_, cache), by_name, prof = profiled(
-            torch, lambda: transformer.prefill(params, cfg, prompts, SERVE_PROMPT + SERVE_GEN),
-            check=launched(DEVICE_NAMES["flash_attention"], cfg.n_layers))
-    k9 = [(t, c) for n, (t, c) in by_name.items() if DEVICE_NAMES["flash_attention"] in n]
-    k9_ms, k9_n = sum(t for t, _ in k9), sum(c for _, c in k9)
-    k9_f32 = sum(c for n, (_, c) in by_name.items() if DEVICE_NAMES["flash_attention_f32"] in n)
-    assert k9_f32 == 0, f"the prefill ran the f32 K9 {k9_f32} times"
-    row["path_ms"] = k9_ms / k9_n if by_name else None  # a launch inside the prefill
-    emit({"phase": "serve_profile", "step": "prefill", **prof, "k9_device_ms": k9_ms,
-          "k9_traced_launches": k9_n, "k9_f32_launches": k9_f32,
-          "k9_ms_per_launch": row["path_ms"],
-          "k9_share_of_device": k9_ms / prof["device_ms"] if by_name else None,
-          **clocks.summary()})
-    tok = tokens[:, 0].cuda()
-
-    def steps():
-        for i in range(8):
-            transformer.decode_step(params, cfg, cache, tok, SERVE_PROMPT + i)
-
-    _, _, prof = profiled(torch, steps)
-    emit({"phase": "serve_profile", "step": "decode x8", **prof,
-          "weight_read_bound_ms_per_step": weight_bytes / mem_rate * 1e3})
-    del params, cache, res, prompts
+          "first_tokens": res["tokens"][0].tolist()})
+    del params, res, swa_prompts
     torch.cuda.empty_cache()
 
     # a reduced phi3 (2 layers, GQA, f32) on the card against the same weights on the CPU
@@ -1115,11 +1126,10 @@ def lm_train_phase(torch, all_ops, path_counts):
     from repro_torch import interop, optim
     from repro_torch import tree as T
     from repro_torch.configs.base import get_config, reduced
-    from repro_torch.core import algorithms, spmd
+    from repro_torch.core import spmd
     from repro_torch.core.sync import SyncConfig
     from repro_torch.data import tokens as tok
     from repro_torch.launch import train
-    from repro_torch.models import transformer
 
     def none_launched(path):
         counts = path_counts[path] = {k: op.launches for k, op in all_ops.items()}
@@ -1154,82 +1164,12 @@ def lm_train_phase(torch, all_ops, path_counts):
 
     # b · minicpm-2b at full width, its depth cut to LM_LAYERS
     cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = spmd.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    n_par = transformer.n_params(params)
-    opt = optim.adam(LM_LR)
-    stack = spmd.stack_replicas(params, LM_R)
-    opt_stack = spmd.stack_replicas(opt.init(params), LM_R)
-    sync_cfg = SyncConfig(algo="easgd", alpha=0.5).validate()
-    algo_state = algorithms.get("easgd").init_state(params, sync_cfg)
-    del params
-    train_step = spmd.make_train_step(cfg, opt, "shadow")
-    sync_step = spmd.make_sync_step(cfg, sync_cfg)
-    trans = tok.make_transition(LM_STREAM_VOCAB, seed=0)
-    n_batches = LM_WARM + LM_ITERS + 1  # and the profiled iteration
-    batches = [{"tokens": tok.gen_batch(trans, 0, it, LM_R * LM_B, LM_S)["tokens"]
-                .reshape(LM_R, LM_B, LM_S).cuda()} for it in range(n_batches)]
-    torch.cuda.synchronize()
-    emit({"phase": "lm_train_setup", "arch": cfg.name, "n_layers": LM_LAYERS,
-          "cut": f"depth 40 -> {LM_LAYERS}", "dtype": cfg.dtype, "params": n_par,
-          "replicas": LM_R, "batch_per_replica": LM_B, "seq_len": LM_S,
-          "stream_vocab": LM_STREAM_VOCAB, "setup_s": time.perf_counter() - t0,
-          "allocated_GB": torch.cuda.memory_allocated() / 1e9,
-          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
-
-    state = {"stack": stack, "opt": opt_stack, "algo": algo_state}
-    del stack, opt_stack, algo_state
-    sync_ms = []
-
-    def iteration(it):
-        state["stack"], state["opt"], loss = train_step(state["stack"], state["opt"],
-                                                        batches[it])
-        if (it + 1) % LM_GAP == 0:
-            torch.cuda.synchronize()
-            t_s = time.perf_counter()
-            state["stack"], state["algo"] = sync_step(state["stack"], state["algo"])
-            torch.cuda.synchronize()
-            sync_ms.append((time.perf_counter() - t_s) * 1e3)
-        return loss
-
-    reset_counts(all_ops.values())
-    losses, iter_ms = [], []
-    for it in range(LM_WARM + LM_ITERS):
-        torch.cuda.synchronize()
-        if it == LM_WARM:
-            torch.cuda.reset_peak_memory_stats()
-            sync_ms.clear()
-        t_i = time.perf_counter()
-        losses.append(float(iteration(it).mean()))
-        torch.cuda.synchronize()
-        if it >= LM_WARM:
-            iter_ms.append((time.perf_counter() - t_i) * 1e3)
-    peak = torch.cuda.max_memory_allocated()
-    # one profiled iteration, after the timed ones (warm already)
-    _, _, prof = profiled(torch, lambda: iteration(LM_WARM + LM_ITERS), warm=False)
-    none_launched("lm_train")
-    assert all(math.isfinite(x) for x in losses), losses
-    assert losses[-1] < losses[0], losses
-    assert len(sync_ms) == LM_ITERS // LM_GAP, sync_ms
-    med = sorted(iter_ms)[len(iter_ms) // 2]
-    tokens = LM_R * LM_B * LM_S
-    hd, L = cfg.resolved_head_dim, cfg.n_layers
-    attn = 3 * 4 * LM_R * LM_B * cfg.n_heads * LM_S * LM_S * hd * L
-    flops = 4 / 3 * (6 * n_par * tokens + attn)
-    emit({"phase": "lm_train_path", "arch": cfg.name, "n_layers": LM_LAYERS, "iters": LM_ITERS,
-          "ms_per_iter_median": med, "ms_per_iter": iter_ms,
-          "spread": (max(iter_ms) - min(iter_ms)) / med,
-          "tokens_per_s": tokens * LM_ITERS / (sum(iter_ms) / 1e3),
-          "sync_ms": sync_ms, "loss_first": losses[0], "loss_last": losses[-1],
-          "losses": losses, "peak_mem_GB": peak / 1e9,
-          "model_flops_per_iter": flops,
-          "mfu_formula": "4/3 * (6 * params * tokens + 3 * 4 * R * B * heads * S^2 * head_dim"
-                         " * layers) / (median s * BF16_RATE)",
-          "mfu": flops / (med / 1e3) / BF16_RATE, "launches": 0,
-          "profile": prof})
-    del state, batches
-    release(torch)
+    attn = (3 * 4 * LM_R * LM_B * cfg.n_heads * LM_S * LM_S * cfg.resolved_head_dim
+            * cfg.n_layers)
+    lm_train_cell(torch, cfg, "lm_train", all_ops, path_counts,
+                  lambda n_par, tokens: 4 / 3 * (6 * n_par * tokens + attn),
+                  "4/3 * (6 * params * tokens + 3 * 4 * R * B * heads * S^2 * head_dim"
+                  " * layers) / (median s * BF16_RATE)", cut=f"depth 40 -> {LM_LAYERS}")
 
     # c · one step and a sync of a reduced minicpm-2b, card against CPU:
     # weights, Adam's m, v, t (t=3, v well above the gradients' rounding,
@@ -1269,6 +1209,340 @@ def lm_train_phase(torch, all_ops, path_counts):
     emit({"phase": "lm_memory", "when": "after",
           "allocated_GB": torch.cuda.memory_allocated() / 1e9,
           "reserved_GB": torch.cuda.memory_reserved() / 1e9})
+
+
+def draw_weights(torch, cfg, path):
+    """``cfg``'s weights drawn on the card's generator from seed 0, leaf by
+    leaf in its dtype; emits ``{path}_setup``. Returns them and their bytes."""
+    from repro_torch import tree as T
+    from repro_torch.models import transformer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                     device="cuda")
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in T.leaves(params))
+    emit({"phase": f"{path}_setup", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "dtype": cfg.dtype, "params": transformer.n_params(params),
+          "weights_GB": weight_bytes / 1e9, "init_s": time.perf_counter() - t0,
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    return params, weight_bytes
+
+
+def serve_cell(torch, cfg, params, weight_bytes, path, all_ops, path_counts, k9_per_prefill,
+               mem_rate):
+    """A served cell (4, 10, 11): ``launch/serve.py``'s warm-up at the timed
+    shape, PREFILL_REPS timed prefills (median, spread) and SERVE_GEN - 1
+    greedy decode steps from the last one's cache, every K1-K9 counter read
+    (K9 once a prefill for each attention layer, ``k9_per_prefill``, and
+    never the f32 K9), a profiled prefill (the SM clock sampled) and 8
+    profiled decode steps. Returns the row, for the caller to add to and
+    emit, and the prompts."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    k9, k9_f32 = DEVICE_NAMES["flash_attention"], DEVICE_NAMES["flash_attention_f32"]
+    prompts = serve.make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=0).cuda()
+    serve.warmup(params, cfg, prompts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(all_ops.values())
+    res = serve.generate(params, cfg, prompts, SERVE_GEN, prefill_reps=PREFILL_REPS)
+    counts = path_counts[path] = {kk: op.launches for kk, op in all_ops.items()}
+    assert counts["flash_attention"] == PREFILL_REPS * k9_per_prefill, counts
+    assert all(c == 0 for kk, c in counts.items() if kk != "flash_attention"), counts
+    finite = bool(torch.isfinite(res["prefill_logits"]).all()
+                  and torch.isfinite(res["last_logits"]).all())
+    assert finite, "non-finite logits"
+    tokens = res["tokens"].cpu()
+    assert tokens.shape == (SERVE_B, SERVE_GEN) and int(tokens.max()) < cfg.vocab_size
+    n_steps = SERVE_GEN - 1
+    row = {"phase": path, "arch": cfg.name, "n_layers": cfg.n_layers, "batch": SERVE_B,
+           "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN, "prefill_ms": res["prefill_s"] * 1e3,
+           "prefill_ms_all": [t * 1e3 for t in res["prefill_s_all"]],
+           "prefill_spread": (max(res["prefill_s_all"]) - min(res["prefill_s_all"]))
+           / res["prefill_s"],
+           "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / res["prefill_s"],
+           "decode_ms_per_step": res["decode_s"] / n_steps * 1e3,
+           "decode_tokens_per_s": n_steps * SERVE_B / res["decode_s"],
+           "k9_launches_per_prefill": counts["flash_attention"] // PREFILL_REPS,
+           "logits_finite": finite, "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
+           "first_tokens": tokens[0, :16].tolist()}
+    del res
+
+    with ClockSampler() as clocks:
+        (_, cache), by_name, prof = profiled(
+            torch, lambda: transformer.prefill(params, cfg, prompts, SERVE_PROMPT + SERVE_GEN),
+            check=launched(k9, k9_per_prefill) if k9_per_prefill else None)
+    k9_ms = sum(t for n, (t, _) in by_name.items() if k9 in n)
+    f32_n = sum(c for n, (_, c) in by_name.items() if k9_f32 in n)
+    assert f32_n == 0, f"the prefill ran the f32 K9 {f32_n} times"
+    row["prefill_profile"] = {
+        **prof, **clocks.summary(), "k9_device_ms": k9_ms if by_name else None,
+        "k9_ms_per_launch": k9_ms / k9_per_prefill if by_name and k9_per_prefill else None,
+        "k9_share_of_device": k9_ms / prof["device_ms"] if by_name else None}
+    tok = tokens[:, 0].cuda()
+
+    def steps():
+        for i in range(8):
+            transformer.decode_step(params, cfg, cache, tok, SERVE_PROMPT + i)
+
+    _, _, prof = profiled(torch, steps)
+    row["decode_profile"] = {**prof, "launches_per_step": prof["device_launches"] / 8
+                             if prof["device_launches"] is not None else None,
+                             "weight_read_bound_ms_per_step": weight_bytes / mem_rate * 1e3}
+    del cache
+    torch.cuda.empty_cache()
+    return row, prompts
+
+
+def lm_families_phase(torch, mem_rate, all_ops, path_counts):
+    """Phase 9: the ssm, MoE and hybrid families. Returns K9's mean device
+    ms a launch in the MoE prefill (None where its trace lost events)."""
+    from repro_torch import optim
+    from repro_torch import tree as T
+    from repro_torch.configs import phi3_medium_14b
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core import algorithms, spmd
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import tokens as tok
+    from repro_torch.launch import serve
+    from repro_torch.models import mamba2, moe, transformer
+
+    def read(path):
+        counts = path_counts[path] = {k: op.launches for k, op in all_ops.items()}
+        return counts
+
+    # a · cell 10 served: mamba2-780m at full width (no attention: no K9)
+    cfg = get_config(FAM_SSM_ARCH)
+    params, weight_bytes = draw_weights(torch, cfg, "serve_mamba2")
+    row, _ = serve_cell(torch, cfg, params, weight_bytes, "serve_mamba2", all_ops, path_counts,
+                        0, mem_rate)
+    emit(row)
+    del params
+    release(torch)
+
+    # b · one full-width mamba2 layer in f32 at B=1, L=512 (two chunks of
+    # 256): the chunked scan against L decode steps, and finite gradients
+    g = torch.Generator(device="cuda").manual_seed(1)
+    p = mamba2.mamba2_init(g, cfg, torch.float32, device="cuda")
+    x = torch.randn((1, SCAN_L, cfg.d_model), generator=g, device="cuda")
+    reset_counts(all_ops.values())
+    with torch.no_grad():
+        y = mamba2.mamba2_apply(p, x, cfg)
+        cache = mamba2.init_mamba_cache(cfg, 1, torch.float32, device="cuda")
+        ys = []
+        for t in range(SCAN_L):
+            yt, cache = mamba2.mamba2_decode(p, x[:, t:t + 1], cfg, cache)
+            ys.append(yt)
+        y_seq = torch.cat(ys, dim=1)
+    err = (y - y_seq).abs().max().item()
+    torch.testing.assert_close(y, y_seq, rtol=SCAN_TOL, atol=SCAN_TOL)
+    p = T.map(lambda a: a.requires_grad_(), p)
+    grads = torch.autograd.grad(mamba2.mamba2_apply(p, x, cfg).square().mean(), T.leaves(p))
+    finite = {k: bool(torch.isfinite(gr).all()) for k, gr in zip(sorted(p), grads)}
+    assert all(finite.values()), finite
+    assert not any(read("mamba2_scan_full").values())
+    emit({"phase": "mamba2_scan_full", "arch": cfg.name, "dtype": "float32", "batch": 1,
+          "L": SCAN_L, "chunk": mamba2.effective_chunk(SCAN_L, cfg.ssm.chunk),
+          "max_abs_err_chunked_vs_decode": err, "tol": SCAN_TOL, "grads_finite": finite,
+          "max_abs_y": y.abs().max().item()})
+    del p, x, y, y_seq, ys, cache, grads
+    release(torch)
+
+    # c · cell 10 trained: R=2 replicas of mamba2-780m at full width. Model
+    # FLOPs: 8 N a token (forward, the unit's recompute, backward), plus the
+    # SSD products a replica runs four times (the same three passes, the
+    # backward counted twice): per layer and chunk C·B once a group, the
+    # decay-weighted sum over s, the carried state's read and its update
+    s, (_, H, _) = cfg.ssm, mamba2._dims(cfg)
+    q = mamba2.effective_chunk(LM_S, s.chunk)
+    ssd = cfg.n_layers * (LM_S // q) * 2 * LM_B * (
+        s.n_groups * q * q * s.d_state + H * q * q * s.headdim + 2 * H * q * s.d_state * s.headdim)
+    lm_train_cell(torch, cfg, "lm_train_mamba2", all_ops, path_counts,
+                  lambda n_par, tokens: 8 * n_par * tokens + 4 * LM_R * ssd,
+                  f"(8 * params * tokens + 4 * R * SSD product FLOPs, {4 * LM_R * ssd:.4g}) / "
+                  "(median s * BF16_RATE)")
+
+    # d · cell 11 served: phi3.5-moe's widths at 16 of its 32 layers; first
+    # K9 against its plain version on layer 0's roped q/k/v at the cell's shape
+    moe_cfg = dataclasses.replace(get_config(FAM_MOE_ARCH), n_layers=FAM_MOE_LAYERS)
+    params, weight_bytes = draw_weights(torch, moe_cfg, "serve_moe")
+    _, q, k, v = layer0_qkv(torch, moe_cfg, params,
+                            serve.make_prompts(moe_cfg, SERVE_B, SERVE_PROMPT, seed=0).cuda())
+    emit({"phase": "kernel_check", "name": "flash_attention", "cell": "serve_moe",
+          **check_attention(torch, q, k, v, True, mem_rate)})
+    del q, k, v
+    torch.cuda.empty_cache()
+    row, prompts = serve_cell(torch, moe_cfg, params, weight_bytes, "serve_moe", all_ops,
+                              path_counts, moe_cfg.n_layers, mem_rate)
+    k9_ms = row["prefill_profile"]["k9_ms_per_launch"]
+    # the share of token-expert assignments each layer drops at capacity
+    # 1.25, from one more prefill with the dispatch watched; then two
+    # identical prefills, bitwise
+    real, keeps = moe._dispatch_indices, []
+
+    def watched(expert_idx, n_experts, cap):
+        order, dest, keep = real(expert_idx, n_experts, cap)
+        keeps.append(keep)
+        return order, dest, keep
+
+    moe._dispatch_indices = watched
+    try:
+        with torch.no_grad():
+            la, ca = transformer.prefill(params, moe_cfg, prompts, SERVE_PROMPT + 1)
+    finally:
+        moe._dispatch_indices = real
+    with torch.no_grad():
+        lb, cb = transformer.prefill(params, moe_cfg, prompts, SERVE_PROMPT + 1)
+    same = torch.equal(la, lb) and all(torch.equal(a, b) for a, b in zip(T.leaves(ca),
+                                                                        T.leaves(cb)))
+    assert same, "two identical MoE prefills differ"
+    assert len(keeps) == moe_cfg.n_layers, len(keeps)
+    drops = [1.0 - k.float().mean().item() for k in keeps]
+    row.update({"cut": f"depth {get_config(FAM_MOE_ARCH).n_layers} -> {FAM_MOE_LAYERS}",
+                "capacity_factor": moe_cfg.moe.capacity_factor,
+                "capacity_prefill": moe.capacity(moe_cfg, SERVE_B * SERVE_PROMPT),
+                "capacity_decode": moe.capacity(moe_cfg, SERVE_B),
+                "dropped_share_per_layer": drops, "prefill_bitwise_repeatable": same})
+    emit(row)
+    del params, prompts, la, lb, ca, cb, keeps
+    release(torch)
+
+    # e · each family reduced (f32) on the card against the CPU, and a
+    # windowed reduced phi3: the same greedy tokens, logits within 2e-4, and
+    # one shadow step (SGD) and an EASGD sync at the trajectory tolerance
+    for name in FAM_REFERENCE:
+        small = (reduced(phi3_medium_14b.CONFIG_SWA) if name == "phi3-medium-14b CONFIG_SWA"
+                 else reduced(get_config(name)))
+        p_cpu = transformer.init_params(small, torch.Generator().manual_seed(0), device="cpu")
+        pr = serve.make_prompts(small, 2, 100, seed=0)
+        cpu = serve.generate(p_cpu, small, pr, 8)
+        reset_counts(all_ops.values())
+        card = serve.generate(T.map(lambda t: t.cuda(), p_cpu), small, pr.cuda(), 8)
+        counts = read(f"families_reference_{small.name}{'_swa' if small.sliding_window else ''}")
+        n_attn = 0 if small.sliding_window else small.layer_kinds().count("A")
+        assert counts["flash_attention"] == n_attn, (name, counts)
+        assert all(c == 0 for kk, c in counts.items() if kk != "flash_attention"), counts
+        assert torch.equal(card["tokens"].cpu(), cpu["tokens"]), (name, card["tokens"])
+        diff = 0.0
+        for kk in ("prefill_logits", "last_logits"):
+            torch.testing.assert_close(card[kk].cpu(), cpu[kk], rtol=2e-4, atol=2e-4)
+            diff = max(diff, (card[kk].cpu() - cpu[kk]).abs().max().item())
+        toks = tok.gen_batch(tok.make_transition(small.vocab_size, seed=1), 1, 0, 2 * 2,
+                             64)["tokens"].reshape(2, 2, 64)
+        sc = SyncConfig(algo="easgd", alpha=0.5).validate()
+        res = {}
+        for dev in ("cuda", "cpu"):
+            stack = spmd.stack_replicas(T.map(lambda t: t.to(dev), p_cpu), 2)
+            ps = algorithms.get("easgd").init_state(T.map(lambda t: t[0], stack), sc)
+            stack, _, loss = spmd.make_train_step(small, optim.sgd(0.1), "shadow")(
+                stack, (), {"tokens": toks.to(dev)})
+            stack, ps = spmd.make_sync_step(small, sc)(stack, ps)
+            res[dev] = T.map(lambda t: t.cpu(), (loss, stack, ps))
+        step_diff = 0.0
+        for a, b in zip(T.leaves(res["cuda"]), T.leaves(res["cpu"])):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)  # trajectory tol
+            step_diff = max(step_diff, (a.double() - b.double()).abs().max().item())
+        emit({"phase": "families_reference", "arch": f"{name} reduced, f32",
+              "family": small.family, "layer_pattern": small.layer_pattern,
+              "tokens_equal": True, "max_logit_diff_cuda_vs_cpu": diff,
+              "max_step_diff_cuda_vs_cpu": step_diff, "loss": res["cuda"][0].tolist(),
+              "k9_launches_per_prefill": counts["flash_attention"]})
+        del p_cpu, res
+    release(torch)
+    return k9_ms
+
+
+def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formula, **setup):
+    """Cells 9 and 10 trained: LM_R replicas of ``cfg`` at full width, Adam,
+    shadow EASGD every LM_GAP iterations, B=LM_B x S=LM_S a replica on the
+    Markov stream over the first LM_STREAM_VOCAB ids; LM_WARM warm-up and
+    LM_ITERS timed iterations, every leaf checked finite after each, and
+    one profiled iteration, with no K1-K9 launch. ``flops_of(params,
+    tokens)`` gives the model FLOPs an iteration (``flops_formula`` says
+    how); ``setup`` goes into the set-up line."""
+    from repro_torch import optim
+    from repro_torch import tree as T
+    from repro_torch.core import algorithms, spmd
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import tokens as tok
+    from repro_torch.models import transformer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = spmd.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_par = transformer.n_params(params)
+    opt = optim.adam(LM_LR)
+    state = {"stack": spmd.stack_replicas(params, LM_R),
+             "opt": spmd.stack_replicas(opt.init(params), LM_R)}
+    sync_cfg = SyncConfig(algo="easgd", alpha=0.5).validate()
+    state["algo"] = algorithms.get("easgd").init_state(params, sync_cfg)
+    dtypes = sorted({str(t.dtype) for t in T.leaves(params)})
+    del params
+    train_step = spmd.make_train_step(cfg, opt, "shadow")
+    sync_step = spmd.make_sync_step(cfg, sync_cfg)
+    trans = tok.make_transition(LM_STREAM_VOCAB, seed=0)
+    batches = [{"tokens": tok.gen_batch(trans, 0, it, LM_R * LM_B, LM_S)["tokens"]
+                .reshape(LM_R, LM_B, LM_S).cuda()} for it in range(LM_WARM + LM_ITERS + 1)]
+    torch.cuda.synchronize()
+    emit({"phase": f"{path}_setup", "arch": cfg.name, "n_layers": cfg.n_layers, **setup,
+          "dtype": cfg.dtype, "leaf_dtypes": dtypes, "params": n_par, "replicas": LM_R,
+          "batch_per_replica": LM_B, "seq_len": LM_S, "stream_vocab": LM_STREAM_VOCAB,
+          "setup_s": time.perf_counter() - t0,
+          "allocated_GB": torch.cuda.memory_allocated() / 1e9,
+          "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
+    sync_ms = []
+
+    def iteration(it):
+        state["stack"], state["opt"], loss = train_step(state["stack"], state["opt"],
+                                                        batches[it])
+        if (it + 1) % LM_GAP == 0:
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            state["stack"], state["algo"] = sync_step(state["stack"], state["algo"])
+            torch.cuda.synchronize()
+            sync_ms.append((time.perf_counter() - t_s) * 1e3)
+        return loss
+
+    def all_finite():
+        leaves = T.leaves((state["stack"], state["opt"], state["algo"]))
+        return bool(torch.stack([torch.isfinite(t).all() for t in leaves]).all())
+
+    reset_counts(all_ops.values())
+    losses, iter_ms = [], []
+    for it in range(LM_WARM + LM_ITERS):
+        torch.cuda.synchronize()
+        if it == LM_WARM:
+            torch.cuda.reset_peak_memory_stats()
+            sync_ms.clear()
+        t_i = time.perf_counter()
+        loss = iteration(it)
+        torch.cuda.synchronize()
+        if it >= LM_WARM:
+            iter_ms.append((time.perf_counter() - t_i) * 1e3)
+        losses.append(float(loss.mean()))
+        assert all_finite(), f"a non-finite leaf after iteration {it}"
+    peak = torch.cuda.max_memory_allocated()
+    _, _, prof = profiled(torch, lambda: iteration(LM_WARM + LM_ITERS), warm=False)
+    counts = path_counts[path] = {k: op.launches for k, op in all_ops.items()}
+    assert not any(counts.values()), counts
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    assert len(sync_ms) == LM_ITERS // LM_GAP, sync_ms
+    med = sorted(iter_ms)[len(iter_ms) // 2]
+    tokens = LM_R * LM_B * LM_S
+    flops = flops_of(n_par, tokens)
+    emit({"phase": path, "arch": cfg.name, "n_layers": cfg.n_layers, "iters": LM_ITERS,
+          "ms_per_iter_median": med, "ms_per_iter": iter_ms,
+          "spread": (max(iter_ms) - min(iter_ms)) / med,
+          "tokens_per_s": tokens * LM_ITERS / (sum(iter_ms) / 1e3),
+          "sync_ms": sync_ms, "loss_first": losses[0], "loss_last": losses[-1],
+          "losses": losses, "all_leaves_finite_every_step": True, "peak_mem_GB": peak / 1e9,
+          "model_flops_per_iter": flops, "mfu_formula": flops_formula,
+          "mfu": flops / (med / 1e3) / BF16_RATE, "launches": 0, "profile": prof})
+    del state, batches
+    release(torch)
 
 
 def shadow_plan(sim, state, n_iters, n_live, sched=()):
@@ -2277,7 +2551,7 @@ def main() -> int:
             assert any(fn in ln for ln in ptxas), f"no {fn} built"
     emit({"phase": "build", "built": built, "seconds": time.perf_counter() - t0})
     k9_build_report(backend)
-
+    lm_ops = {"interaction": interaction_op, "flash_attention": gqa_attention_op}
     # 4a · the main path's sim and state (its tables feed phase 3 too)
     cfg = dlrm_ctr.CONFIG
     t0 = time.perf_counter()
@@ -2302,7 +2576,6 @@ def main() -> int:
                 "ma_update": ma_ops.ma_sync_op, "ma_update_rows": ma_ops.ma_sync_rows_op,
                 "bmuf_update": bmuf_sync_op, "bmuf_update_rows": bmuf_sync_rows_op,
                 "gossip_pair": gossip_pair_flat_op, "gossip_round": gossip_round_op}
-    lm_ops = {"interaction": interaction_op, "flash_attention": gqa_attention_op}
     all_ops = {**ops, **sync_ops, **lm_ops}
     path_counts = {}  # {path: {kernel: launches in that path's run}}
 
@@ -2653,9 +2926,17 @@ def main() -> int:
 
     # 8 · the LM trainer
     lm_train_phase(torch, all_ops, path_counts)
+
+    # 9 · the ssm, MoE and hybrid families
+    k9_row["moe_path_ms"] = lm_families_phase(torch, mem_rate, all_ops, path_counts)
+    k9_row["launches_serve_moe"] = path_counts["serve_moe"]["flash_attention"]
+    k9_row["launches_serve_swa"] = path_counts["serve_swa"]["flash_attention"]
+    k9_row["launches_families_reference"] = {
+        p[len("families_reference_"):]: c["flash_attention"] for p, c in path_counts.items()
+        if p.startswith("families_reference_")}
     k8_row["launches"] = sum(c["interaction"] for c in path_counts.values())  # no path runs K8
 
-    # 9 · the kernel table, the card, the result
+    # 10 · the kernel table, the card, the result
     main_path_of = {"replica_mean": "sim_ma", "ma_update": "sim_ma",
                     "replica_mean_rows": "elastic_ma", "ma_update_rows": "elastic_ma",
                     "bmuf_update": "sim_bmuf", "bmuf_update_rows": "elastic_bmuf",
@@ -2666,9 +2947,11 @@ def main() -> int:
         assert row["launches"] > 0, (k, row["launches_by_path"])
     rows.update(sync_rows)
     rows["interaction"], rows["flash_attention"] = k8_row, k9_row
-    for k, row in rows.items():  # the LM trainer's full-width window: none
+    for k, row in rows.items():  # the LM trainers' full-width windows: none
         op = k if k in all_ops else k.rsplit("_", 2)[0]
         row["launches_lm_train"] = path_counts["lm_train"][op]
+        row["launches_lm_train_mamba2"] = path_counts["lm_train_mamba2"][op]
+        row["launches_serve_mamba2"] = path_counts["serve_mamba2"][op]
     emit({"kernels": [{k: v for k, v in row.items() if k != "tol"} for row in rows.values()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -17,10 +17,13 @@ into the stacks leaf by leaf (``optim.update_in_place``), bitwise the
 functional update. So a step updates ``params`` and ``opt_state`` in place
 and returns them.
 
-The reference's mesh (its ``spmd_axis_name``, the syncdp all-reduce) is not
+The dense, moe, ssm and hybrid families train here; their trees may mix
+dtypes (mamba2's f32 ``A_log``, ``dt_bias`` and ``D`` and the MoE router
+beside bf16 weights), which every update and sync keeps leaf by leaf. The
+reference's mesh (its ``spmd_axis_name``, the syncdp all-reduce) is not
 ported: one process, one device (ROADMAP queue 1, 'sharding, dry run, mesh
 and roofline'). The audio family raises (ROADMAP queue 1, 'the other LM
-families').
+families'), and the vlm family with it (``transformer.check_ported``).
 """
 from __future__ import annotations
 

@@ -76,8 +76,10 @@ def shard_states_from_numpy(plan: shards.ShardPlan, packed_state: Dict[str, Any]
 
 def lm_params_from_numpy(tree: Tree, device="cpu") -> Tree:
     """The JAX ``spmd.init_params`` tree of an LM (its leaves as numpy, f32
-    or bfloat16) -> the port's parameters: the same keys and the same
-    stacked ``unit`` tuple (``models/transformer.py``)."""
+    or bfloat16, side by side in one tree where the model keeps some leaves
+    f32: mamba2's ``A_log``, ``dt_bias``, ``D``, the MoE router) -> the
+    port's parameters, each leaf in its own dtype: the same keys and the
+    same stacked ``unit`` tuple (``models/transformer.py``)."""
     return T.map(lambda x: _tensor(x, device), tree)
 
 

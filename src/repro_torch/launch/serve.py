@@ -1,20 +1,23 @@
 """Batched serving launcher: prefill a batch of prompts, then decode greedily,
 on the CUDA card unless ``--device cpu`` is given.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch phi3-medium-14b \
-      --batch 2 --prompt-len 64 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch jamba-1.5-large-398b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-medium-14b --full \
       --batch 4 --prompt-len 2048 --gen 32
 
 The flags are the JAX launcher's (``repro/launch/serve.py``), with the same
-default arch; ``--device`` and ``--full`` (the arch's own ``CONFIG`` at full
-width instead of ``reduced(...)``) are the port's. After a warm-up at the
-timed shape the prefill is timed ``TIMED_PREFILLS`` times and the median
-printed. Weights are random, drawn
-from ``--seed``: at ``--full`` on the card's own generator, leaf by leaf in
-the config's dtype. Every prefill attention layer runs the flash-attention
-kernel (K9) on the card. Only the dense family is ported: the others raise
-``NotImplementedError`` naming their ROADMAP item.
+default arch, mamba2-780m; ``--device`` and ``--full`` (the arch's own
+``CONFIG`` at full width instead of ``reduced(...)``) are the port's. After a
+warm-up at the timed shape the prefill is timed ``TIMED_PREFILLS`` times and
+the median printed. Weights are random, drawn from ``--seed``: at ``--full``
+on the card's own generator, leaf by leaf in the config's dtype. The dense,
+moe, ssm and hybrid families are served; every unwindowed prefill attention
+layer runs the flash-attention kernel (K9) on the card. llava (the vision
+frontend) and whisper (the audio family) raise ``NotImplementedError``
+naming their ROADMAP item. At full width jamba-1.5-large (398 B parameters),
+kimi-k2 and phi3.5-moe do not fit one card.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Layer helpers (the parts of ``repro/models/layers.py`` that DLRM and the
-dense LM serving and training paths need).
+LM serving and training paths need).
 
 Parameters are plain dicts of tensors, as in the reference. Linear weights
 are ``(d_in, d_out)`` and applied as ``x @ w``. The reference's sharding
@@ -120,26 +120,16 @@ def _sdpa_block(q, k, v, mask, scale):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def refuse_on_card(cfg) -> None:
-    """The card's prefill attention is K9: causal self-attention over every
-    earlier position. A sliding window is refused there (the training form
-    takes it on the card, as the reference does)."""
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"sliding-window attention (window {cfg.sliding_window}) in the card's prefill is "
-            "not yet ported: the flash-attention kernel has no window (ROADMAP queue 1, 'the "
-            "other LM families')")
+Q_CHUNK = 1024  # the plain path's query rows a block (the reference's default)
 
 
-Q_CHUNK = 1024  # the training form's query rows a block (the reference's default)
-
-
-def _train_attention(q, k, v, positions, cfg) -> torch.Tensor:
+def _chunked_attention(q, k, v, positions, cfg) -> torch.Tensor:
     """The reference's full-sequence path (``repro/models/layers.py:147-185``):
     ``_sdpa_block`` over query chunks of ``Q_CHUNK`` rows (the largest chunk
-    that divides S when ``Q_CHUNK`` does not), each chunk recomputed in the
-    backward pass, so a (chunk, S) score tile is the largest live one.
-    Plain torch, differentiable on every device."""
+    that divides S when ``Q_CHUNK`` does not), so a (chunk, S) score tile is
+    the largest live one; when ``q`` needs a gradient each chunk is
+    recomputed in the backward pass. Plain torch, differentiable on every
+    device, with or without a sliding window."""
     B, S, H, hd = q.shape
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
@@ -160,8 +150,10 @@ def _train_attention(q, k, v, positions, cfg) -> torch.Tensor:
     def body(qi, pi):
         return _sdpa_block(qi, k, v, block_mask(pi), scale)
 
-    outs = [remat(body, q[:, i:i + q_chunk], positions[i:i + q_chunk])
-            for i in range(0, S, q_chunk)]
+    def run(qi, pi):
+        return remat(body, qi, pi) if qi.requires_grad else body(qi, pi)
+
+    outs = [run(q[:, i:i + q_chunk], positions[i:i + q_chunk]) for i in range(0, S, q_chunk)]
     return torch.cat(outs, dim=1)
 
 
@@ -179,30 +171,24 @@ def attention_apply(
     the caller picks. The prefill form (``train=False``) goes through
     ``gqa_attention_op``: K9 on the card, its plain version on the CPU; K9
     has no backward, so its wrapper refuses a card input that needs a
-    gradient. A sliding window runs the reference's plain path there (CPU
-    only). The training form (``train=True``) is the reference's
-    query-chunked ``_sdpa_block`` (``_train_attention``), windowed or not,
-    on any device. With ``return_kv`` also returns the roped k and the v,
-    (B, S, n_kv, hd) each, for the cache (the reference recomputes them;
-    they are the same tensors). ``rope``: the positions' ``rope_tables``."""
+    gradient. K9 has no window: a sliding window takes the reference's
+    query-chunked plain path (``_chunked_attention``) on every device. The
+    training form (``train=True``) is that path too, windowed or not, its
+    chunks recomputed in the backward pass. With ``return_kv`` also returns
+    the roped k and the v, (B, S, n_kv, hd) each, for the cache (the
+    reference recomputes them; they are the same tensors). ``rope``: the
+    positions' ``rope_tables``."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    if x.is_cuda and not train:
-        refuse_on_card(cfg)
     q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
     k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta, rope)
     k = apply_rope(k, positions, cfg.rope_theta, rope)
-    if train:
-        out = _train_attention(q, k, v, positions, cfg)
-    elif cfg.sliding_window is None:
+    if train or cfg.sliding_window is not None:
+        out = _chunked_attention(q, k, v, positions, cfg)
+    else:
         out = gqa_attention_op(q, k, v, causal=True)
-    else:  # causal within the window: the reference's plain path
-        n_rep = cfg.n_heads // cfg.n_kv_heads
-        dist = positions[:, None] - positions[None, :]
-        mask = (dist >= 0) & (dist < cfg.sliding_window)
-        out = _sdpa_block(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), mask, hd ** -0.5)
     y = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
     return (y, k, v) if return_kv else y
 

@@ -1,17 +1,19 @@
-"""Decoder stack for the dense family: full-sequence ``forward`` and the
-next-token ``loss_fn`` (train), ``prefill`` (forward + cache build) and
-``decode_step`` (one token against the cache).
+"""Decoder stack for the dense, moe, ssm and hybrid families: full-sequence
+``forward`` and the next-token ``loss_fn`` (train), ``prefill`` (forward +
+cache build) and ``decode_step`` (one token against the cache).
 
 The reference's stacked layout is kept: layers are grouped by the repeating
-``layer_pattern`` unit and each unit position's leaves carry a leading
-``repeats`` dimension. A Python loop over the repeats takes the place of
-``lax.scan``, so weights carried across from the JAX package
-(``interop.lm_params_from_numpy``) are used as they are.
+``layer_pattern`` unit ('A' attention, 'M' mamba2) and each unit position's
+leaves carry a leading ``repeats`` dimension. A Python loop over the repeats
+takes the place of ``lax.scan``, so weights carried across from the JAX
+package (``interop.lm_params_from_numpy``) are used as they are. A layer's
+FFN is MoE where ``cfg.is_moe_layer`` holds of its **unit position**, as in
+the reference (``repro/models/transformer.py:70, 136, 331, 340``), and the
+MoE layers' load-balance losses are summed into ``aux``.
 
-Only the dense family is ported. The mamba2 mixer, MoE layers, the vision
-projector and the ``parallel_block`` variant raise ``NotImplementedError``
-naming their ROADMAP queue-1 item by its subject, as does any family other
-than dense.
+The vision frontend (vlm), the audio family and the ``parallel_block``
+variant raise ``NotImplementedError`` naming their ROADMAP queue-1 item by
+its subject.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import mamba2
 from repro_torch.models.layers import (
     Params,
     attention_apply,
@@ -39,21 +42,17 @@ from repro_torch.models.layers import (
     swiglu,
     swiglu_init,
 )
+from repro_torch.models.moe import moe_apply, moe_init
 
 
 def check_ported(cfg: ArchConfig) -> None:
     """Refuse what the port does not compute yet, before any weight is drawn."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not yet ported (ROADMAP queue 1, "
-            "'the other LM families'); "
-            "the port serves the dense family")
-    if cfg.moe is not None or cfg.ssm is not None or set(cfg.layer_pattern) != {"A"}:
-        raise NotImplementedError(f"{cfg.name}: MoE and mamba2 layers are not yet ported "
-                                  "(ROADMAP queue 1, 'the other LM families')")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend.kind} frontend is not yet "
-                                  "ported (ROADMAP queue 1, 'the other LM families')")
+    if cfg.family == "audio" or (cfg.frontend is not None and cfg.frontend.kind == "audio"):
+        raise NotImplementedError(f"{cfg.name}: the audio family (whisper) is not yet ported "
+                                  "(ROADMAP queue 1, 'the other LM families', audio)")
+    if cfg.family == "vlm" or cfg.frontend is not None:
+        raise NotImplementedError(f"{cfg.name}: the vision frontend (vlm) is not yet ported "
+                                  "(ROADMAP queue 1, 'the other LM families', vlm)")
     if cfg.parallel_block:
         raise NotImplementedError(f"{cfg.name}: parallel_block (a dry-run variant) is not yet "
                                   "ported (ROADMAP queue 1, 'sharding, dry run, mesh and "
@@ -80,19 +79,33 @@ def _mask_padded_logits(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return logits.masked_fill(col >= cfg.vocab_size, -1e30)
 
 
-def _layer_init(draw, cfg: ArchConfig, kind: str, dtype, device) -> Params:
-    p: Params = {"norm1": rmsnorm_init(cfg.d_model, dtype, device),
-                 "mixer": attention_init(draw, cfg, dtype)}
-    if cfg.d_ff > 0:
+def _layer_init(gen: torch.Generator, cfg: ArchConfig, kind: str, pos: int, dtype,
+                device) -> Params:
+    """One layer at unit position ``pos``: an attention or mamba2 mixer, then
+    (when the config has one) a SwiGLU or, where ``cfg.is_moe_layer(pos)``,
+    an MoE FFN."""
+    def draw(d_in, d_out, dt, scale=None):
+        return dense_init(gen, d_in, d_out, dt, scale=scale, device=device)
+
+    p: Params = {"norm1": rmsnorm_init(cfg.d_model, dtype, device)}
+    if kind == "A":
+        p["mixer"] = attention_init(draw, cfg, dtype)
+    else:
+        p["mixer"] = mamba2.mamba2_init(gen, cfg, dtype, device)
+    if cfg.d_ff > 0 or cfg.moe is not None:
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, device)
-        p["ffn"] = swiglu_init(draw, cfg.d_model, cfg.d_ff, dtype)
+        if cfg.is_moe_layer(pos):
+            p["ffn"] = moe_init(gen, cfg, dtype, device)
+        else:
+            p["ffn"] = swiglu_init(draw, cfg.d_model, cfg.d_ff, dtype)
     return p
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, device=None, dtype=None) -> Params:
-    """Random weights in the reference's tree layout, each drawn as
-    Normal(0, 1) * scale on ``gen``'s device, cast to ``dtype`` (the
-    config's by default) and moved to ``device``. Each unit position's
+    """Random weights in the reference's tree layout, each drawn on
+    ``gen``'s device as the reference draws it, cast to ``dtype`` (the
+    config's by default; mamba2's ``A_log``, ``dt_bias``, ``D`` and the MoE
+    router stay f32) and moved to ``device``. Each unit position's
     leaves are allocated stacked over the repeats and filled one layer at a
     time, so the peak stays near the weights' own size plus one layer."""
     check_ported(cfg)
@@ -108,7 +121,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device=None, dtype=None) 
     for pos in range(unit):
         stacked = None
         for r in range(repeats):
-            layer = _layer_init(draw, cfg, kinds[pos], dtype, device)
+            layer = _layer_init(gen, cfg, kinds[pos], pos, dtype, device)
             if stacked is None:
                 stacked = T.map(lambda x: torch.empty((repeats, *x.shape), dtype=x.dtype,
                                                       device=x.device), layer)
@@ -149,25 +162,43 @@ def check_remat_policy(policy: str) -> None:
         raise ValueError(f"unknown remat policy {policy!r}; expected 'full' or 'save_comm'")
 
 
-def _apply_layer_full(lp: Params, x, cfg: ArchConfig, positions, rope, cache=None,
-                      train: bool = False):
-    """One block, full sequence. With ``cache`` ({"k","v"} of one layer,
-    (B, S_max, n_kv, hd)), writes this layer's roped k and v into its first
-    S positions. ``train`` picks the training form of attention."""
+def _ffn(lp: Params, h: torch.Tensor, cfg: ArchConfig, pos: int):
+    """The layer's FFN on its normed input: (y, aux), aux None unless MoE."""
+    if cfg.is_moe_layer(pos):
+        return moe_apply(lp["ffn"], h, cfg)
+    return swiglu(lp["ffn"], h), None
+
+
+def _apply_layer_full(lp: Params, x, cfg: ArchConfig, kind: str, pos: int, positions, rope,
+                      cache=None, train: bool = False):
+    """One block at unit position ``pos``, full sequence. Returns (x, aux),
+    aux None when the layer has no MoE. With ``cache`` (this layer's slice
+    of the stacked cache) writes its prefill state in place: an attention
+    layer's roped k and v into the first S positions, a mamba2 layer's
+    final SSD state and pre-conv tail. ``train`` picks the training form of
+    attention."""
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    if cache is None:
+    if kind == "A" and cache is None:
         mixed = attention_apply(lp["mixer"], h, cfg, positions=positions, rope=rope,
                                 train=train)
-    else:
+    elif kind == "A":
         mixed, k, v = attention_apply(lp["mixer"], h, cfg, positions=positions, rope=rope,
                                       return_kv=True)
         S = x.shape[1]
         cache["k"][:, :S] = k.to(cache["k"].dtype)
         cache["v"][:, :S] = v.to(cache["v"].dtype)
+    elif cache is None:
+        mixed = mamba2.mamba2_apply(lp["mixer"], h, cfg)
+    else:
+        mixed, ssm, conv = mamba2.mamba2_apply(lp["mixer"], h, cfg, return_state=True)
+        cache["ssm"].copy_(ssm)
+        cache["conv"].copy_(conv)
     x = x + mixed
+    aux = None
     if "ffn" in lp:
-        x = x + swiglu(lp["ffn"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
-    return x
+        y, aux = _ffn(lp, rmsnorm(lp["norm2"], x, cfg.norm_eps), cfg, pos)
+        x = x + y
+    return x, aux
 
 
 def _layer(unit_lp: Params, r: int) -> Params:
@@ -184,25 +215,32 @@ def _layers(unit_lp: Params, repeats: int):
 
 
 def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, cache=None,
-                train: bool = False, remat_units: bool = False) -> torch.Tensor:
-    """The stack, repeat by repeat. ``remat_units`` recomputes each repeat's
-    unit in the backward pass (the reference's ``jax.checkpoint(unit_body)``
+                train: bool = False, remat_units: bool = False):
+    """The stack, repeat by repeat. Returns the final-norm hidden states
+    and ``aux``, the MoE layers' losses summed in the reference's order (f32
+    scalar; 0 without MoE). ``remat_units`` recomputes each repeat's unit
+    in the backward pass (the reference's ``jax.checkpoint(unit_body)``
     inside its scan), so a unit's input is the only activation it keeps."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     rope = _rope(cfg, positions)
     unit, repeats = _unit_info(cfg)
+    kinds = cfg.layer_kinds()
     layers = [_layers(params["unit"][pos], repeats) for pos in range(unit)]
 
-    def unit_body(x, r):
+    def unit_body(x, aux, r):
         for pos in range(unit):
             c = None if cache is None else _layer(cache[pos], r)
-            x = _apply_layer_full(layers[pos][r], x, cfg, positions, rope, c, train)
-        return x
+            x, a = _apply_layer_full(layers[pos][r], x, cfg, kinds[pos], pos, positions, rope,
+                                     c, train)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(repeats):
-        x = remat(unit_body, x, r) if remat_units else unit_body(x, r)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        x, aux = remat(unit_body, x, aux, r) if remat_units else unit_body(x, aux, r)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -210,8 +248,9 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             return_cache: bool = False, return_hidden: bool = False):
     """tokens: (B, S). Returns (logits, aux_loss[, cache]); with
     ``return_hidden`` the final-norm hidden states instead of logits. The
-    cache is stacked over repeats, (repeats, B, S, n_kv, hd) per leaf, as the
-    reference's scan stacks it.
+    cache is stacked over repeats, as the reference's scan stacks it:
+    (repeats, B, S, n_kv, hd) per attention leaf, ``init_mamba_cache``'s
+    layout for a mamba2 position.
 
     ``train`` picks the training form of attention (the reference's
     query-chunked plain attention, differentiable on the card) over the
@@ -227,8 +266,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = embed_lookup(params["embed"], tokens)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, S, device=x.device) if return_cache else None
-    x = _run_layers(params, cfg, x, cache, train=train, remat_units=remat)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _run_layers(params, cfg, x, cache, train=train, remat_units=remat)
     out = x if return_hidden else _mask_padded_logits(_head(params, cfg, x), cfg)
     return (out, aux, cache) if return_cache else (out, aux)
 
@@ -236,9 +274,10 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 def loss_fn(params: Params, cfg: ArchConfig, batch, *, remat: bool = False,
             remat_policy: str = "full", ce_chunk: int = 512) -> torch.Tensor:
     """Next-token LM loss through the training form, with the chunked
-    softmax-CE (the (B, S, V) logits never exist). batch: {"tokens": (B, S)}.
-    Position t predicts token t + 1; the last position has weight 0. The
-    head is the embedding table's transpose when tied."""
+    softmax-CE (the (B, S, V) logits never exist), plus the MoE layers'
+    load-balance ``aux``. batch: {"tokens": (B, S)}. Position t predicts
+    token t + 1; the last position has weight 0. The head is the embedding
+    table's transpose when tied."""
     tokens = batch["tokens"]
     hidden, aux = forward(params, cfg, tokens, train=True, remat=remat,
                           remat_policy=remat_policy, return_hidden=True)
@@ -252,11 +291,16 @@ def loss_fn(params: Params, cfg: ArchConfig, batch, *, remat: bool = False,
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=None, device=None) -> Any:
+    """A zeroed serving cache, one entry a unit position, stacked over the
+    repeats: an attention position's {"k", "v"} of ``s_max`` positions in
+    ``dtype``, a mamba2 position's {"ssm" (f32), "conv" (``dtype``)}."""
     check_ported(cfg)
     dtype = dtype or dtype_of(cfg.dtype)
     unit, repeats = _unit_info(cfg)
     return tuple(init_attention_cache(cfg, batch, s_max, dtype, device, lead=(repeats,))
-                 for _ in range(unit))
+                 if kind == "A" else
+                 mamba2.init_mamba_cache(cfg, batch, dtype, device, lead=(repeats,))
+                 for kind in cfg.layer_kinds()[:unit])
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int
@@ -265,33 +309,41 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int
     (last-position logits (B, V_padded), cache of ``s_max`` positions). As in
     the reference, only the last position is projected, and onto the padded
     head without masking its padded columns (``decode_step`` slices them
-    off). The cache is preallocated and written layer by layer."""
+    off). The cache is preallocated and written layer by layer. A mamba2
+    layer needs at least ``d_conv - 1`` prompt tokens for its conv state."""
     check_ported(cfg)
     x = embed_lookup(params["embed"], tokens)
     B, S, _ = x.shape
     if S > s_max:
         raise ValueError(f"prompt length {S} exceeds the cache's {s_max} positions")
     cache = init_cache(cfg, B, s_max, device=x.device)
-    hidden = _run_layers(params, cfg, x, cache)
+    hidden, _ = _run_layers(params, cfg, x, cache)
     return _head(params, cfg, hidden[:, -1, :]), cache
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Any, token: torch.Tensor, pos: int
                 ) -> Tuple[torch.Tensor, Any]:
-    """token: (B,) integer; ``pos`` a host int. Writes the new K/V into
+    """token: (B,) integer; ``pos`` a host int (read by attention layers
+    only). Writes the new K/V, or a mamba2 layer's new state, into
     ``cache`` in place and returns (logits (B, vocab_size), cache)."""
     check_ported(cfg)
     x = embed_lookup(params["embed"], token[:, None])
     rope = _rope(cfg, torch.full((1,), pos, device=x.device))  # a fill, no host-to-device copy
     unit, repeats = _unit_info(cfg)
+    kinds = cfg.layer_kinds()
     for r in range(repeats):
         for p_idx in range(unit):
-            lp = _layer(params["unit"][p_idx], r)
+            lp, c = _layer(params["unit"][p_idx], r), _layer(cache[p_idx], r)
             h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
-            mixed, _ = attention_decode(lp["mixer"], h, cfg, _layer(cache[p_idx], r), pos, rope)
+            if kinds[p_idx] == "A":
+                mixed, _ = attention_decode(lp["mixer"], h, cfg, c, pos, rope)
+            else:
+                mixed, new = mamba2.mamba2_decode(lp["mixer"], h, cfg, c)
+                c["ssm"].copy_(new["ssm"])
+                c["conv"].copy_(new["conv"])
             x = x + mixed
             if "ffn" in lp:
-                x = x + swiglu(lp["ffn"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
+                x = x + _ffn(lp, rmsnorm(lp["norm2"], x, cfg.norm_eps), cfg, p_idx)[0]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(params, cfg, x)[:, 0, : cfg.vocab_size], cache
 

@@ -907,3 +907,83 @@ def test_the_lm_launcher_on_the_card_launches_no_kernel(gen):
     out = train.main(["lm", "--iters", "10", "--batch-size", "4", "--seq-len", "64"])
     assert [op.launches for op in ops] == before
     assert all(math.isfinite(x) for x in out["losses"]) and out["loss_end"] < out["loss_start"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b", "phi3.5-moe-42b-a6.6b",
+                                  "kimi-k2-1t-a32b", "phi3-medium-14b CONFIG_SWA"])
+def test_reduced_family_serving_on_the_card_follows_the_cpu(gen, arch):
+    """A reduced ssm, hybrid, MoE and windowed config (f32, TF32 off): the
+    same weights and prompts on the card and the CPU give the same greedy
+    tokens, logits and cache within 2e-4; K9 runs once a prefill for each
+    unwindowed attention layer and never for a window."""
+    from repro_torch.configs import phi3_medium_14b
+
+    cfg = (reduced(phi3_medium_14b.CONFIG_SWA) if arch.endswith("CONFIG_SWA")
+           else reduced(get_config(arch)))
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = serve.make_prompts(cfg, 2, 100, seed=0)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = serve.generate(params, cfg, prompts, 8)
+        before = gqa_attention_op.launches
+        card = serve.generate(T.map(lambda x: x.cuda(), params), cfg, prompts.cuda(), 8)
+        n_attn = 0 if cfg.sliding_window else cfg.layer_kinds().count("A")
+        assert gqa_attention_op.launches == before + n_attn
+        lc, cc = transformer.prefill(T.map(lambda x: x.cuda(), params), cfg, prompts.cuda(), 108)
+        lp, cp = transformer.prefill(params, cfg, prompts, 108)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert torch.equal(card["tokens"].cpu(), cpu["tokens"])
+    for key in ("prefill_logits", "last_logits"):
+        torch.testing.assert_close(card[key].cpu(), cpu[key], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=2e-4, atol=2e-4)
+    for a, b in zip(T.leaves(cc), T.leaves(cp)):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
+
+
+def test_moe_unroute_on_the_card_is_repeatable(gen):
+    """Dispatch, expert products and the un-route (a permutation back to the
+    token slots, summed over k in order) have no atomics: the same layer
+    twice gives the same bits, bf16 and f32, with and without drops."""
+    from repro_torch.models import moe
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(reduced(get_config("kimi-k2-1t-a32b")),
+                                  dtype=str(dtype).split(".")[-1])
+        p = T.map(lambda x: x.cuda(), moe.moe_init(torch.Generator().manual_seed(1), cfg, dtype))
+        x = torch.randn((4, 256, cfg.d_model), generator=gen).to("cuda", dtype)
+        for cf in (None, 1.0):
+            y1, a1 = moe.moe_apply(p, x, cfg, capacity_factor=cf)
+            y2, a2 = moe.moe_apply(p, x, cfg, capacity_factor=cf)
+            assert torch.equal(y1, y2) and torch.equal(a1, a2), (dtype, cf)
+
+
+def test_mamba2_layer_on_the_card_follows_the_cpu(gen):
+    """One reduced mamba2 layer (f32, TF32 off), chunked (L=200: chunks of
+    25) and in decode steps: the card within the trajectory tolerance of
+    the CPU, and its gradients too."""
+    from repro_torch.models import mamba2
+
+    cfg = reduced(get_config("jamba-1.5-large-398b"))
+    p = mamba2.mamba2_init(torch.Generator().manual_seed(2), cfg, torch.float32)
+    x = torch.randn((2, 200, cfg.d_model), generator=gen)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            pd = T.map(lambda a: a.to(dev).requires_grad_(), p)
+            y = mamba2.mamba2_apply(pd, x.to(dev), cfg)
+            grads = torch.autograd.grad(y.square().mean(), T.leaves(pd))
+            cache = mamba2.init_mamba_cache(cfg, 2, torch.float32, device=dev)
+            ys = []
+            with torch.no_grad():
+                for t in range(3):
+                    yt, cache = mamba2.mamba2_decode(pd, x[:, t:t + 1].to(dev), cfg, cache)
+                    ys.append(yt)
+            out[dev] = T.map(lambda a: a.detach().cpu(), (y, grads, ys))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    for a, b in zip(T.leaves(out["cuda"]), T.leaves(out["cpu"])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -6,10 +6,14 @@ across as numpy with ``interop.lm_params_from_numpy``; the JAX steps run
 jitted on the CPU, as its launcher runs them. Reduced phi3-medium-14b keeps
 GQA (4 query heads on 2 KV heads); reduced minicpm-2b is MHA with tied
 embeddings, and its vocab is cut to 500 so the head is padded to 512;
-phi3 with a 64-token sliding window runs the plain attention path (on the
-CPU only: the card refuses a window); reduced granite-20b is MQA (4 query
-heads on 1 KV head). A bf16 reduced phi3 is held to the JAX package at a
-bound set for bf16 rounding.
+phi3 with a 64-token sliding window runs the query-chunked plain attention
+path (K9 has no window); reduced granite-20b is MQA (4 query heads on 1 KV
+head). The other families, reduced: mamba2-780m (ssm: two mamba2 layers, a
+16-head SSD state and a conv state in the cache), jamba-1.5-large (hybrid:
+a mamba2 layer with a SwiGLU, then an attention layer with MoE),
+phi3.5-moe (MoE, 4 experts top-2) and kimi-k2 (MoE with a shared expert);
+``reduced()`` makes MoE dropless. A bf16 reduced phi3 is held to the JAX
+package at a bound set for bf16 rounding.
 """
 import dataclasses
 import functools
@@ -26,11 +30,13 @@ from repro.configs.base import get_config as jget_config  # noqa: E402
 from repro.configs.base import reduced as jreduced  # noqa: E402
 from repro.core import spmd as jspmd  # noqa: E402
 from repro_torch import interop  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
+TRAJ = dict(rtol=1e-4, atol=1e-5)
 N_DECODE = 8
 # (arch, the reduced config's overrides)
 ARCHS = {"phi3": ("phi3-medium-14b", dict(n_kv_heads=2)),
@@ -38,7 +44,12 @@ ARCHS = {"phi3": ("phi3-medium-14b", dict(n_kv_heads=2)),
          # the CPU's plain path for a window (CONFIG_SWA's, cut as reduced() cuts it)
          "phi3_swa": ("phi3-medium-14b", dict(n_kv_heads=2, sliding_window=64)),
          # MQA, as granite-20b and -34b: every query head on one KV head
-         "granite": ("granite-20b", {})}
+         "granite": ("granite-20b", {}),
+         "mamba2": ("mamba2-780m", {}),
+         "jamba": ("jamba-1.5-large-398b", {}),
+         "phi35moe": ("phi3.5-moe-42b-a6.6b", {}),
+         "kimi": ("kimi-k2-1t-a32b", {})}
+FAMILIES = ("mamba2", "jamba", "phi35moe", "kimi")
 # bf16 serving: the two packages round to bf16 at other places (the port's
 # prefill attention keeps f32 scores, the JAX package's bf16 scores and
 # probabilities), so the prefill logits differ by ~1% in norm. Measured on
@@ -90,10 +101,14 @@ def _port_params(name):
 
 
 def _check_cache(got, want):
+    """Each unit position's cache: {"k", "v"} of an attention layer, {"ssm",
+    "conv"} of a mamba2 layer, in the JAX package's shapes and dtypes."""
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        for key in ("k", "v"):
+        assert sorted(g) == sorted(w)
+        for key in g:
             assert tuple(g[key].shape) == w[key].shape
+            assert str(g[key].dtype).split(".")[-1] == str(w[key].dtype), key
             np.testing.assert_allclose(g[key].numpy(), w[key], **TOL)
 
 
@@ -164,6 +179,24 @@ def test_forward_matches_jax():
                                       return_cache=True)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert float(aux) == 0.0 and (tl[..., cfg.vocab_size:] == -1e30).all()
+    _check_cache(tc, jax.tree.map(np.asarray, jc))
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_forward_matches_jax(name):
+    """The full-sequence forward of each new family with its cache and the
+    MoE layers' summed load-balance loss, at the trajectory tolerance."""
+    from repro.models import transformer as jtransformer
+
+    jcfg, cfg = _cfgs(name)
+    toks = _prompts(cfg.vocab_size, 48)
+    jl, jaux, jc = jtransformer.forward(_jax_weights(name), jcfg, jnp.asarray(toks),
+                                        return_cache=True)
+    tl, aux, tc = transformer.forward(_port_params(name), cfg, torch.from_numpy(toks),
+                                      return_cache=True)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TRAJ)
+    np.testing.assert_allclose(float(aux), float(jaux), **TRAJ)
+    assert (float(aux) > 0) == (cfg.moe is not None)
     _check_cache(tc, jax.tree.map(np.asarray, jc))
 
 
@@ -269,8 +302,79 @@ def test_decode_attends_only_to_filled_positions():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b", "kimi-k2-1t-a32b",
-                                  "llava-next-34b", "whisper-base", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-base"])
 def test_serve_refuses_unported_families(arch):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve.main(["--device", "cpu", "--arch", arch, "--prompt-len", "8", "--gen", "2"])
+
+
+@pytest.mark.parametrize("arch", [None, "jamba-1.5-large-398b", "phi3.5-moe-42b-a6.6b",
+                                  "kimi-k2-1t-a32b"], ids=["default", "jamba", "phi35moe", "kimi"])
+def test_serve_cli_serves_each_family(arch, capsys):
+    """The launcher's default arch (mamba2-780m, reduced) and the other
+    families, on the CPU."""
+    argv = ["--device", "cpu", "--batch", "2", "--prompt-len", "24", "--gen", "4"]
+    out = serve.main(argv + ([] if arch is None else ["--arch", arch]))
+    assert out["tokens"].shape == (2, 4) and out["logits_finite"]
+    assert f"{arch or 'mamba2-780m'} (reduced, float32" in capsys.readouterr().out
+
+
+def test_windowed_prefill_beyond_a_query_chunk_matches_jax():
+    """CONFIG_SWA as ``reduced()`` cuts it (window 64) at S=1100: two query
+    chunks of 550, each far beyond the window; then two greedy steps."""
+    jcfg, cfg = _cfgs("phi3_swa")
+    toks = _prompts(cfg.vocab_size, 1100)
+    params = _jax_weights("phi3_swa")
+    jl, jc = jax.jit(jspmd.make_prefill_step(jcfg, 1102))(params, {"tokens": jnp.asarray(toks)})
+    p = _port_params("phi3_swa")
+    tl, tc = transformer.prefill(p, cfg, torch.from_numpy(toks), 1102)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _check_cache(tc, jax.tree.map(np.asarray, jc))
+    decode = jax.jit(jspmd.make_decode_step(jcfg))
+    jt, tt = jnp.argmax(jl, -1), torch.argmax(tl, -1)
+    for i in range(2):
+        jl, jc = decode(params, jc, jt, jnp.asarray(1100 + i, jnp.int32))
+        tl, tc = transformer.decode_step(p, cfg, tc, tt, 1100 + i)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        jt, tt = jnp.argmax(jl, -1), torch.argmax(tl, -1)
+        assert np.array_equal(tt.numpy(), np.asarray(jt))
+
+
+def test_windowed_prefill_does_not_take_the_flash_attention_wrapper(monkeypatch):
+    """K9 has no window: a windowed prefill never calls its wrapper."""
+    calls = []
+    monkeypatch.setattr(layers, "gqa_attention_op", lambda *a, **k: calls.append(1))
+    _, cfg = _cfgs("phi3_swa")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    logits, _ = transformer.prefill(params, cfg, serve.make_prompts(cfg, 1, 100, seed=0), 101)
+    assert not calls and torch.isfinite(logits).all()
+
+
+def test_sliding_window_masks_history():
+    """As the JAX package's test of the same name (``tests/test_models.py:132``):
+    logits beyond the layers' reach of the perturbed tokens do not move."""
+    cfg = dataclasses.replace(reduced(get_config("phi3-medium-14b")), sliding_window=8)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
+    t1 = serve.make_prompts(cfg, 1, 32, seed=4)
+    t2 = t1.clone()
+    t2[:, :8] = (t1[:, :8] + 7) % cfg.vocab_size
+    l1, _ = transformer.forward(params, cfg, t1)
+    l2, _ = transformer.forward(params, cfg, t2)
+    horizon = 7 + cfg.n_layers * (cfg.sliding_window - 1) + 1
+    torch.testing.assert_close(l1[:, horizon:], l2[:, horizon:], rtol=0, atol=1e-4)
+    assert float((l1[:, :8] - l2[:, :8]).abs().max()) > 1e-3
+
+
+def test_bf16_family_weights_carry_across():
+    """A bf16 jamba tree: the mamba2 mixer's A_log, dt_bias and D and the MoE
+    router stay f32 beside bf16 weights, each carried bitwise."""
+    jcfg, cfg = _cfgs("jamba")
+    jw = jspmd.init_params(dataclasses.replace(jcfg, dtype="bfloat16"), jax.random.PRNGKey(1))
+    tw = interop.lm_params_from_numpy(jax.tree.map(np.asarray, jw))
+    mixer, ffn = tw["unit"][0]["mixer"], tw["unit"][1]["ffn"]
+    assert {mixer[k].dtype for k in ("A_log", "dt_bias", "D")} == {torch.float32}
+    assert ffn["router"].dtype == torch.float32
+    assert mixer["in_proj"].dtype == ffn["w_gate"].dtype == torch.bfloat16
+    got = [x.float().numpy() for x in T.leaves(tw)]
+    want = [np.asarray(x, np.float32) for x in jax.tree.leaves(jw)]
+    assert len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))

@@ -101,7 +101,24 @@ Phases, each of which asserts (any failure exits non-zero):
      reduced mamba2, jamba, phi3.5-moe, kimi-k2 and a windowed phi3 on the
      card against the CPU (greedy tokens, logits within 2e-4, one shadow
      step and a sync at the trajectory tolerance);
- 10. the kernel table as one JSON line, then the result line.
+ 10. the vlm and audio families: whisper-base at full width (cell 13), K9
+     held against its plain version and timed at its encoder's shape (B=32
+     x 1,500 frames, 8 heads of 64, every key), served to 32 clips of bf16
+     frames (5 timed prefills, 63 decode steps, exactly 12 K9 launches a
+     prefill, profiled) and trained as phase 8 trains minicpm-2b (R=2 x B=8
+     clips of 1,500 frames and 448 tokens; no K1-K9 launch); then, the
+     weights released (device memory before and after), llava-next-34b at
+     full width, all 60 layers (cell 14: 68.88 GB of bf16 weights drawn on
+     the card), K9 timed at its prefill's shape (B=4 x 3,136, 56 heads on 8
+     KV heads of 128, causal) and held against its plain version on layer
+     0's own q/k/v, served to 4 prompts of 2,880 image-prefix positions and
+     256 tokens (5 timed prefills, 31 decode steps, exactly 60 K9 launches a
+     prefill, profiled); then reduced llava and whisper on the card against
+     the CPU as phase 9 holds the other families. A ``model_flops`` line for
+     each trained cell (9, 10, 13) gives ``roofline.analysis``'s count with
+     ``param_count`` beside it, asserted equal to the parameters drawn, as
+     every cell's set-up line asserts;
+ 11. the kernel table as one JSON line, then the result line.
 """
 import cProfile
 import dataclasses
@@ -217,6 +234,20 @@ FAM_SSM_ARCH, FAM_MOE_ARCH, FAM_MOE_LAYERS = "mamba2-780m", "phi3.5-moe-42b-a6.6
 SCAN_L, SCAN_TOL = 512, 2e-3  # the reference test's chunked-vs-sequential bound
 FAM_REFERENCE = ("mamba2-780m", "jamba-1.5-large-398b", "phi3.5-moe-42b-a6.6b",
                  "kimi-k2-1t-a32b", "phi3-medium-14b CONFIG_SWA")
+
+# the vlm and audio families. Cell 13: whisper-base at full width, no cut
+# (6 encoder + 6 decoder layers, d_model 512, 8 heads of 64, d_ff 2,048,
+# 1,500 frames, vocab 51,865 padded to 51,968, tied, bf16: 70.7 M
+# parameters), served to B=32 clips of 1,500 bf16 frames with a 4-token
+# prompt and 64 greedy tokens (K9 12 times a prefill: 6 encoder, 6 decoder
+# self-attention layers), and trained (R=2 x B=8 clips of 1,500 frames and
+# 448 tokens, as cell 9: Adam, shadow EASGD). Cell 14: llava-next-34b at
+# full width, all 60 layers (d_model 7,168, 56/8 heads of 128, d_ff 20,480,
+# vocab 64,000, untied, bf16: 34.44 B parameters, 68.88 GB), served to B=4
+# prompts of 2,880 image-prefix positions and 256 tokens, 32 greedy tokens
+# (K9 60 times a prefill). Then both reduced on the card against the CPU.
+AUD_ARCH, AUD_B, AUD_PROMPT, AUD_GEN, AUD_TRAIN_B, AUD_TRAIN_S = "whisper-base", 32, 4, 64, 8, 448
+VLM_ARCH, VLM_B, VLM_PROMPT, VLM_GEN = "llava-next-34b", 4, 256, 32
 
 # torch.profiler traces: the marker kernel (torch.cuda._sleep's) that opens
 # and closes the recorded run, its length, the card's clock for the pad
@@ -350,7 +381,7 @@ def traced(torch, body, warm=True, host=False, check=None):
 
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     for attempt, pad_s in enumerate(TRACE_PADS_S):
-        kept = {}
+        kept, out = {}, None  # a lost attempt's result goes before the next run
 
         def ready(p):
             kept["events"] = list(p.events())
@@ -897,16 +928,22 @@ def attention_bound(q, k, causal, mem_rate):
     return bound(nbytes, 4 * d * Bq * H * pairs, mem_rate, rate)
 
 
-def check_attention(torch, q, k, v, causal, mem_rate, timed=False):
+def check_attention(torch, q, k, v, causal, mem_rate, timed=False, by_row=False):
     """K9 against its plain version on (B, S, H, d) q and (B, S, KV, d) k, v.
-    Returns the check (and, if ``timed``, the table row's times)."""
+    Returns the check (and, if ``timed``, the table row's times). ``by_row``
+    computes the plain version one batch row at a time (its f32 score
+    tiles beside a full-width model's weights)."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.flash_attention.ops import gqa_attention_op
     from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
 
     got = one_launch(gqa_attention_op, lambda: gqa_attention_op(q, k, v, causal=causal))
-    want = gqa_attention_ref(q, k, v, causal=causal)
+    if by_row:
+        want = torch.cat([gqa_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal)
+                          for i in range(q.shape[0])])
+    else:
+        want = gqa_attention_ref(q, k, v, causal=causal)
     got, want = got.float(), want.float()
     err = max_err([got], [want])
     rel_norm = ((got - want).norm() / want.norm()).item()
@@ -1002,14 +1039,16 @@ def k9_in_context(torch, q, k, v, before, reps=50):
     return {"k9_ms": k9_ms, "calls": reps, **clocks.summary()}
 
 
-def layer0_qkv(torch, cfg, params, prompts):
+def layer0_qkv(torch, cfg, params, prompts, prefix_embeds=None):
     """Layer 0's normed input and the roped q, k, v that its prefill hands
-    K9 for ``prompts``, computed as ``layers.attention_apply`` does."""
+    K9 for ``prompts`` (after the projected ``prefix_embeds``, where given),
+    computed as ``layers.attention_apply`` does."""
     from repro_torch.models import layers, transformer
 
     lp = transformer._layer(params["unit"][0], 0)
-    x = layers.rmsnorm(lp["norm1"], layers.embed_lookup(params["embed"], prompts), cfg.norm_eps)
-    (Bs, S), hd, mp = prompts.shape, cfg.resolved_head_dim, lp["mixer"]
+    x = layers.rmsnorm(lp["norm1"], transformer.embed_inputs(params, prompts, prefix_embeds),
+                       cfg.norm_eps)
+    (Bs, S), hd, mp = x.shape[:2], cfg.resolved_head_dim, lp["mixer"]
     pos = torch.arange(S, device=prompts.device)
     q = layers.apply_rope((x @ mp["wq"]).reshape(Bs, S, cfg.n_heads, hd), pos, cfg.rope_theta)
     k = layers.apply_rope((x @ mp["wk"]).reshape(Bs, S, cfg.n_kv_heads, hd), pos, cfg.rope_theta)
@@ -1213,42 +1252,52 @@ def lm_train_phase(torch, all_ops, path_counts):
 
 def draw_weights(torch, cfg, path):
     """``cfg``'s weights drawn on the card's generator from seed 0, leaf by
-    leaf in its dtype; emits ``{path}_setup``. Returns them and their bytes."""
+    leaf in its dtype (``spmd.init_params``: whisper's tree for audio);
+    emits ``{path}_setup``. Returns them and their bytes. Their element
+    count must be ``roofline.params.param_count(cfg)``'s."""
     from repro_torch import tree as T
+    from repro_torch.core import spmd
     from repro_torch.models import transformer
+    from repro_torch.roofline.params import param_count
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = transformer.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                                     device="cuda")
+    params = spmd.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     weight_bytes = sum(t.numel() * t.element_size() for t in T.leaves(params))
+    n_par = transformer.n_params(params)
+    assert n_par == param_count(cfg), (n_par, param_count(cfg))
     emit({"phase": f"{path}_setup", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "dtype": cfg.dtype, "params": transformer.n_params(params),
+          "dtype": cfg.dtype, "params": n_par, "param_count": param_count(cfg),
           "weights_GB": weight_bytes / 1e9, "init_s": time.perf_counter() - t0,
           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
     return params, weight_bytes
 
 
 def serve_cell(torch, cfg, params, weight_bytes, path, all_ops, path_counts, k9_per_prefill,
-               mem_rate):
-    """A served cell (4, 10, 11): ``launch/serve.py``'s warm-up at the timed
-    shape, PREFILL_REPS timed prefills (median, spread) and SERVE_GEN - 1
-    greedy decode steps from the last one's cache, every K1-K9 counter read
-    (K9 once a prefill for each attention layer, ``k9_per_prefill``, and
-    never the f32 K9), a profiled prefill (the SM clock sampled) and 8
-    profiled decode steps. Returns the row, for the caller to add to and
+               mem_rate, batch=SERVE_B, prompt=SERVE_PROMPT, gen=SERVE_GEN, frontend=None):
+    """A served cell (4, 10, 11, 13, 14): ``launch/serve.py``'s warm-up at
+    the timed shape, PREFILL_REPS timed prefills (median, spread) and ``gen`` -
+    1 greedy decode steps from the last one's cache, through ``spmd``'s
+    steps, every K1-K9 counter read (K9 once a prefill for each
+    self-attention layer, ``k9_per_prefill``, and never the f32 K9), a
+    profiled prefill (the SM clock sampled) and 8 profiled decode steps.
+    ``frontend``: ``serve.make_frontend``'s inputs (a prefix of P positions
+    goes before the prompt). Returns the row, for the caller to add to and
     emit, and the prompts."""
+    from repro_torch.core import spmd
     from repro_torch.launch import serve
-    from repro_torch.models import transformer
 
     k9, k9_f32 = DEVICE_NAMES["flash_attention"], DEVICE_NAMES["flash_attention_f32"]
-    prompts = serve.make_prompts(cfg, SERVE_B, SERVE_PROMPT, seed=0).cuda()
-    serve.warmup(params, cfg, prompts)
+    prompts = serve.make_prompts(cfg, batch, prompt, seed=0).cuda()
+    frontend = frontend or {}
+    n_prefix = frontend["prefix_embeds"].shape[1] if "prefix_embeds" in frontend else 0
+    serve.warmup(params, cfg, prompts, frontend)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(all_ops.values())
-    res = serve.generate(params, cfg, prompts, SERVE_GEN, prefill_reps=PREFILL_REPS)
+    res = serve.generate(params, cfg, prompts, gen, prefill_reps=PREFILL_REPS,
+                         frontend=frontend)
     counts = path_counts[path] = {kk: op.launches for kk, op in all_ops.items()}
     assert counts["flash_attention"] == PREFILL_REPS * k9_per_prefill, counts
     assert all(c == 0 for kk, c in counts.items() if kk != "flash_attention"), counts
@@ -1256,24 +1305,31 @@ def serve_cell(torch, cfg, params, weight_bytes, path, all_ops, path_counts, k9_
                   and torch.isfinite(res["last_logits"]).all())
     assert finite, "non-finite logits"
     tokens = res["tokens"].cpu()
-    assert tokens.shape == (SERVE_B, SERVE_GEN) and int(tokens.max()) < cfg.vocab_size
-    n_steps = SERVE_GEN - 1
-    row = {"phase": path, "arch": cfg.name, "n_layers": cfg.n_layers, "batch": SERVE_B,
-           "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN, "prefill_ms": res["prefill_s"] * 1e3,
+    # the prefill's head is the padded one, unmasked (the reference's): its
+    # token may be a padded column; every decoded one is a real id
+    assert tokens.shape == (batch, gen) and int(tokens.max()) < -(-cfg.vocab_size // 256) * 256
+    assert gen == 1 or int(tokens[:, 1:].max()) < cfg.vocab_size
+    n_steps = gen - 1
+    row = {"phase": path, "arch": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
+           "prefix_len": n_prefix, "prompt_len": prompt, "gen": gen,
+           "prefill_ms": res["prefill_s"] * 1e3,
            "prefill_ms_all": [t * 1e3 for t in res["prefill_s_all"]],
            "prefill_spread": (max(res["prefill_s_all"]) - min(res["prefill_s_all"]))
            / res["prefill_s"],
-           "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / res["prefill_s"],
+           "prefill_tokens_per_s": batch * (n_prefix + prompt) / res["prefill_s"],
            "decode_ms_per_step": res["decode_s"] / n_steps * 1e3,
-           "decode_tokens_per_s": n_steps * SERVE_B / res["decode_s"],
+           "decode_tokens_per_s": n_steps * batch / res["decode_s"],
            "k9_launches_per_prefill": counts["flash_attention"] // PREFILL_REPS,
            "logits_finite": finite, "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9,
            "first_tokens": tokens[0, :16].tolist()}
     del res
 
+    s_max = n_prefix + prompt + gen
+    prefill_step, decode_step = spmd.make_prefill_step(cfg, s_max), spmd.make_decode_step(cfg)
+    step_batch = {"tokens": prompts, **frontend}
     with ClockSampler() as clocks:
         (_, cache), by_name, prof = profiled(
-            torch, lambda: transformer.prefill(params, cfg, prompts, SERVE_PROMPT + SERVE_GEN),
+            torch, lambda: prefill_step(params, step_batch),
             check=launched(k9, k9_per_prefill) if k9_per_prefill else None)
     k9_ms = sum(t for n, (t, _) in by_name.items() if k9 in n)
     f32_n = sum(c for n, (_, c) in by_name.items() if k9_f32 in n)
@@ -1286,7 +1342,7 @@ def serve_cell(torch, cfg, params, weight_bytes, path, all_ops, path_counts, k9_
 
     def steps():
         for i in range(8):
-            transformer.decode_step(params, cfg, cache, tok, SERVE_PROMPT + i)
+            decode_step(params, cache, tok, n_prefix + prompt + i)
 
     _, _, prof = profiled(torch, steps)
     row["decode_profile"] = {**prof, "launches_per_step": prof["device_launches"] / 8
@@ -1300,13 +1356,9 @@ def serve_cell(torch, cfg, params, weight_bytes, path, all_ops, path_counts, k9_
 def lm_families_phase(torch, mem_rate, all_ops, path_counts):
     """Phase 9: the ssm, MoE and hybrid families. Returns K9's mean device
     ms a launch in the MoE prefill (None where its trace lost events)."""
-    from repro_torch import optim
     from repro_torch import tree as T
     from repro_torch.configs import phi3_medium_14b
     from repro_torch.configs.base import get_config, reduced
-    from repro_torch.core import algorithms, spmd
-    from repro_torch.core.sync import SyncConfig
-    from repro_torch.data import tokens as tok
     from repro_torch.launch import serve
     from repro_torch.models import mamba2, moe, transformer
 
@@ -1411,64 +1463,220 @@ def lm_families_phase(torch, mem_rate, all_ops, path_counts):
     release(torch)
 
     # e · each family reduced (f32) on the card against the CPU, and a
-    # windowed reduced phi3: the same greedy tokens, logits within 2e-4, and
-    # one shadow step (SGD) and an EASGD sync at the trajectory tolerance
+    # windowed reduced phi3
     for name in FAM_REFERENCE:
         small = (reduced(phi3_medium_14b.CONFIG_SWA) if name == "phi3-medium-14b CONFIG_SWA"
                  else reduced(get_config(name)))
-        p_cpu = transformer.init_params(small, torch.Generator().manual_seed(0), device="cpu")
-        pr = serve.make_prompts(small, 2, 100, seed=0)
-        cpu = serve.generate(p_cpu, small, pr, 8)
-        reset_counts(all_ops.values())
-        card = serve.generate(T.map(lambda t: t.cuda(), p_cpu), small, pr.cuda(), 8)
-        counts = read(f"families_reference_{small.name}{'_swa' if small.sliding_window else ''}")
-        n_attn = 0 if small.sliding_window else small.layer_kinds().count("A")
-        assert counts["flash_attention"] == n_attn, (name, counts)
-        assert all(c == 0 for kk, c in counts.items() if kk != "flash_attention"), counts
-        assert torch.equal(card["tokens"].cpu(), cpu["tokens"]), (name, card["tokens"])
-        diff = 0.0
-        for kk in ("prefill_logits", "last_logits"):
-            torch.testing.assert_close(card[kk].cpu(), cpu[kk], rtol=2e-4, atol=2e-4)
-            diff = max(diff, (card[kk].cpu() - cpu[kk]).abs().max().item())
-        toks = tok.gen_batch(tok.make_transition(small.vocab_size, seed=1), 1, 0, 2 * 2,
-                             64)["tokens"].reshape(2, 2, 64)
-        sc = SyncConfig(algo="easgd", alpha=0.5).validate()
-        res = {}
-        for dev in ("cuda", "cpu"):
-            stack = spmd.stack_replicas(T.map(lambda t: t.to(dev), p_cpu), 2)
-            ps = algorithms.get("easgd").init_state(T.map(lambda t: t[0], stack), sc)
-            stack, _, loss = spmd.make_train_step(small, optim.sgd(0.1), "shadow")(
-                stack, (), {"tokens": toks.to(dev)})
-            stack, ps = spmd.make_sync_step(small, sc)(stack, ps)
-            res[dev] = T.map(lambda t: t.cpu(), (loss, stack, ps))
-        step_diff = 0.0
-        for a, b in zip(T.leaves(res["cuda"]), T.leaves(res["cpu"])):
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)  # trajectory tol
-            step_diff = max(step_diff, (a.double() - b.double()).abs().max().item())
-        emit({"phase": "families_reference", "arch": f"{name} reduced, f32",
-              "family": small.family, "layer_pattern": small.layer_pattern,
-              "tokens_equal": True, "max_logit_diff_cuda_vs_cpu": diff,
-              "max_step_diff_cuda_vs_cpu": step_diff, "loss": res["cuda"][0].tolist(),
-              "k9_launches_per_prefill": counts["flash_attention"]})
-        del p_cpu, res
+        family_reference(torch, small, name, all_ops, path_counts)
     release(torch)
     return k9_ms
 
 
-def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formula, **setup):
-    """Cells 9 and 10 trained: LM_R replicas of ``cfg`` at full width, Adam,
-    shadow EASGD every LM_GAP iterations, B=LM_B x S=LM_S a replica on the
-    Markov stream over the first LM_STREAM_VOCAB ids; LM_WARM warm-up and
-    LM_ITERS timed iterations, every leaf checked finite after each, and
-    one profiled iteration, with no K1-K9 launch. ``flops_of(params,
-    tokens)`` gives the model FLOPs an iteration (``flops_formula`` says
-    how); ``setup`` goes into the set-up line."""
+def n_self_attention(cfg):
+    """K9's launches a prefill of ``cfg``: every unwindowed self-attention
+    layer (whisper's encoder and decoder layers both)."""
+    if cfg.family == "audio":
+        return cfg.encoder.n_layers + cfg.n_layers
+    return 0 if cfg.sliding_window else cfg.layer_kinds().count("A")
+
+
+def family_reference(torch, small, name, all_ops, path_counts):
+    """A reduced config (f32) on the card against the CPU, the same weights
+    and inputs (the frontend's, where the family has one): the same greedy
+    tokens, logits within 2e-4, K9 once a prefill for each self-attention
+    layer, and one shadow step (SGD) and an EASGD sync at the trajectory
+    tolerance."""
     from repro_torch import optim
     from repro_torch import tree as T
     from repro_torch.core import algorithms, spmd
     from repro_torch.core.sync import SyncConfig
     from repro_torch.data import tokens as tok
+    from repro_torch.launch import serve
+
+    p_cpu = spmd.init_params(small, torch.Generator().manual_seed(0), device="cpu")
+    pr = serve.make_prompts(small, 2, 100, seed=0)
+    front = serve.make_frontend(small, 2, 0)
+    cpu = serve.generate(p_cpu, small, pr, 8, frontend=front)
+    reset_counts(all_ops.values())
+    card = serve.generate(T.map(lambda t: t.cuda(), p_cpu), small, pr.cuda(), 8,
+                          frontend=T.map(lambda t: t.cuda(), front))
+    path = f"families_reference_{small.name}{'_swa' if small.sliding_window else ''}"
+    counts = path_counts[path] = {k: op.launches for k, op in all_ops.items()}
+    assert counts["flash_attention"] == n_self_attention(small), (name, counts)
+    assert all(c == 0 for kk, c in counts.items() if kk != "flash_attention"), counts
+    assert torch.equal(card["tokens"].cpu(), cpu["tokens"]), (name, card["tokens"])
+    diff = 0.0
+    for kk in ("prefill_logits", "last_logits"):
+        torch.testing.assert_close(card[kk].cpu(), cpu[kk], rtol=2e-4, atol=2e-4)
+        diff = max(diff, (card[kk].cpu() - cpu[kk]).abs().max().item())
+    toks = tok.gen_batch(tok.make_transition(small.vocab_size, seed=1), 1, 0, 2 * 2,
+                         64)["tokens"].reshape(2, 2, 64)
+    batch = {"tokens": toks, **{k: v.reshape(2, 2, *v.shape[1:])
+                                for k, v in serve.make_frontend(small, 4, 1).items()}}
+    sc = SyncConfig(algo="easgd", alpha=0.5).validate()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        stack = spmd.stack_replicas(T.map(lambda t: t.to(dev), p_cpu), 2)
+        ps = algorithms.get("easgd").init_state(T.map(lambda t: t[0], stack), sc)
+        stack, _, loss = spmd.make_train_step(small, optim.sgd(0.1), "shadow")(
+            stack, (), T.map(lambda t: t.to(dev), batch))
+        stack, ps = spmd.make_sync_step(small, sc)(stack, ps)
+        res[dev] = T.map(lambda t: t.cpu(), (loss, stack, ps))
+    step_diff = 0.0
+    for a, b in zip(T.leaves(res["cuda"]), T.leaves(res["cpu"])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)  # trajectory tol
+        step_diff = max(step_diff, (a.double() - b.double()).abs().max().item())
+    emit({"phase": "families_reference", "arch": f"{name} reduced, f32",
+          "family": small.family, "layer_pattern": small.layer_pattern,
+          "tokens_equal": True, "max_logit_diff_cuda_vs_cpu": diff,
+          "max_step_diff_cuda_vs_cpu": step_diff, "loss": res["cuda"][0].tolist(),
+          "k9_launches_per_prefill": counts["flash_attention"]})
+
+
+def whisper_train_flops(cfg, n_clips):
+    """Model FLOPs of a whisper training iteration over ``n_clips`` clips of
+    ``n_ctx`` frames and AUD_TRAIN_S tokens: forward and backward (3x) of
+    every weight product (the encoder's layers per frame; the decoder's
+    layers, its cross-attention's K/V projections per frame, and the tied
+    head per token) and of the attention products (encoder over every key,
+    decoder causal, cross over every frame), plus the encoder's attention
+    once more (its query chunks are recomputed in the backward pass)."""
+    d, ff, F, S = cfg.d_model, cfg.d_ff, cfg.encoder.n_ctx, AUD_TRAIN_S
+    n_enc, n_dec = cfg.encoder.n_layers, cfg.n_layers
+    v_pad = -(-cfg.vocab_size // 256) * 256
+    weights = 2 * (F * n_enc * (4 * d * d + 2 * d * ff)
+                   + S * n_dec * (6 * d * d + 2 * d * ff) + F * n_dec * 2 * d * d + S * d * v_pad)
+    enc_attn = 4 * F * F * d * n_enc
+    attn = enc_attn + 4 * S * (S + 1) // 2 * d * n_dec + 4 * S * F * d * n_dec
+    return n_clips * (3 * (weights + attn) + enc_attn)
+
+
+def vlm_audio_phase(torch, mem_rate, all_ops, path_counts):
+    """Phase 10: the audio (cell 13) and vlm (cell 14) families at full
+    width, then both reduced on the card against the CPU. Returns K9's
+    checks and times at the two cells' shapes, for the kernel table."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, whisper
+    from repro_torch.models.layers import dtype_of
+
+    keys = ("shape", "kv_heads", "dtype", "causal", "max_abs_err", "rel_norm_err", "ms",
+            "op_ms", "call_ms", "plain_ms", "plain_call_ms", "library_ms", "bound_ms",
+            "bound_by")
+    k9 = {}
+
+    # a · cell 13 served: whisper-base at full width, bf16 frames; first K9
+    # against its plain version on encoder layer 0's q/k/v (every key),
+    # timed beside SDPA and the plain version
+    cfg = get_config(AUD_ARCH)
+    params, weight_bytes = draw_weights(torch, cfg, "serve_whisper")
+    front = serve.make_frontend(cfg, AUD_B, 0, dtype_of(cfg.dtype), "cuda")
+    with torch.no_grad():
+        lp = T.map(lambda a: a[0], params["enc"])
+        fr = front["frames"]
+        S, hd = fr.shape[1], cfg.resolved_head_dim
+        x = fr + whisper.sinusoids(S, cfg.d_model, fr.device).to(fr.dtype)
+        h = layers.layernorm(lp["norm1"], x, cfg.norm_eps)
+        q = (h @ lp["attn"]["wq"]).reshape(AUD_B, S, cfg.n_heads, hd)
+        k = (h @ lp["attn"]["wk"]).reshape(AUD_B, S, cfg.n_kv_heads, hd)
+        v = (h @ lp["attn"]["wv"]).reshape(AUD_B, S, cfg.n_kv_heads, hd)
+    chk = check_attention(torch, q, k, v, False, mem_rate, timed=True)
+    emit({"phase": "kernel", **chk, "name": "flash_attention", "cell": "serve_whisper",
+          "library": "scaled_dot_product_attention(is_causal=False)"})
+    k9["whisper_encoder"] = {kk: chk[kk] for kk in keys if kk in chk}
+    del q, k, v, x, h, lp, chk
+    row, _ = serve_cell(torch, cfg, params, weight_bytes, "serve_whisper", all_ops, path_counts,
+                        n_self_attention(cfg), mem_rate, batch=AUD_B, prompt=AUD_PROMPT,
+                        gen=AUD_GEN, frontend=front)
+    emit(row)
+    k9["whisper_path_ms"] = row["prefill_profile"]["k9_ms_per_launch"]
+    del params, front, row
+    release(torch)
+
+    # b · cell 13 trained: R=2 x B=8 clips, frames from their own numpy stream
+    def frames_of(it):
+        f = serve.make_frontend(cfg, LM_R * AUD_TRAIN_B, it + 1, dtype_of(cfg.dtype),
+                                "cuda")["frames"]
+        return {"frames": f.reshape(LM_R, AUD_TRAIN_B, *f.shape[1:])}
+
+    lm_train_cell(torch, cfg, "lm_train_whisper", all_ops, path_counts,
+                  lambda n_par, tokens: whisper_train_flops(cfg, LM_R * AUD_TRAIN_B),
+                  "chip_smoke.whisper_train_flops (3 x weight and attention products, the "
+                  "encoder's attention once more) / (median s * BF16_RATE)",
+                  batch=AUD_TRAIN_B, seq=AUD_TRAIN_S, extra=frames_of)
+
+    # c · cell 14: llava-next-34b at full width, every earlier phase's
+    # weights released first; K9 timed at the cell's shape on random q/k/v
+    # while the card is empty (the plain version's f32 score tiles take
+    # 27 GB), then held against its plain version on layer 0's own
+    mem = {"allocated_GB_before": torch.cuda.memory_allocated() / 1e9,
+           "reserved_GB_before": torch.cuda.memory_reserved() / 1e9}
+    release(torch)
+    emit({"phase": "vlm_memory", **mem,
+          "allocated_GB_after": torch.cuda.memory_allocated() / 1e9,
+          "reserved_GB_after": torch.cuda.memory_reserved() / 1e9})
+    cfg = get_config(VLM_ARCH)
+    n_prefix, hd = cfg.frontend.n_tokens, cfg.resolved_head_dim
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((VLM_B, n_prefix + VLM_PROMPT, cfg.n_heads, hd), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((VLM_B, n_prefix + VLM_PROMPT, cfg.n_kv_heads, hd), generator=g,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    chk = check_attention(torch, q, k, v, True, mem_rate, timed=True)
+    emit({"phase": "kernel", **chk, "name": "flash_attention", "cell": "serve_llava",
+          "inputs": "random normal", "library": "scaled_dot_product_attention(is_causal=True, "
+                                                 "enable_gqa=True)"})
+    k9["llava_prefill"] = {kk: chk[kk] for kk in keys if kk in chk}
+    del q, k, v, chk
+    release(torch)
+    params, weight_bytes = draw_weights(torch, cfg, "serve_llava")
+    front = serve.make_frontend(cfg, VLM_B, 0, dtype_of(cfg.dtype), "cuda")
+    prompts = serve.make_prompts(cfg, VLM_B, VLM_PROMPT, seed=0).cuda()
+    with torch.no_grad():
+        _, q, k, v = layer0_qkv(torch, cfg, params, prompts, front["prefix_embeds"])
+    chk = check_attention(torch, q, k, v, True, mem_rate, by_row=True)
+    emit({"phase": "kernel_check", "name": "flash_attention", "cell": "serve_llava", **chk})
+    k9["llava_layer0"] = {kk: chk[kk] for kk in keys if kk in chk}
+    del q, k, v, prompts, chk
+    release(torch)
+    row, _ = serve_cell(torch, cfg, params, weight_bytes, "serve_llava", all_ops, path_counts,
+                        cfg.n_layers, mem_rate, batch=VLM_B, prompt=VLM_PROMPT, gen=VLM_GEN,
+                        frontend=front)
+    emit(row)
+    k9["llava_path_ms"] = row["prefill_profile"]["k9_ms_per_launch"]
+    del params, front, row
+    release(torch)
+
+    # d · both reduced (f32) on the card against the CPU
+    for name in (VLM_ARCH, AUD_ARCH):
+        family_reference(torch, reduced(get_config(name)), name, all_ops, path_counts)
+    release(torch)
+    return k9
+
+
+def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formula,
+                  batch=LM_B, seq=LM_S, extra=None, **setup):
+    """Cells 9, 10 and 13 trained: LM_R replicas of ``cfg`` at full width,
+    Adam, shadow EASGD every LM_GAP iterations, ``batch`` x ``seq`` tokens a
+    replica on the Markov stream over the first LM_STREAM_VOCAB ids (and
+    ``extra(it)``'s inputs, (LM_R, batch, ...) each: whisper's frames);
+    LM_WARM warm-up and LM_ITERS timed iterations, every leaf checked
+    finite after each, and one profiled iteration, with no K1-K9 launch.
+    ``flops_of(params, tokens)`` gives the model FLOPs an iteration
+    (``flops_formula`` says how); ``setup`` goes into the set-up line. A
+    ``model_flops`` line gives ``roofline.analysis.model_flops_estimate``'s
+    count for the same shape, with ``param_count`` (asserted equal to the
+    parameters drawn) beside it."""
+    from repro_torch import optim
+    from repro_torch import tree as T
+    from repro_torch.core import algorithms, spmd
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import tokens as tok
+    from repro_torch.configs.base import InputShape
     from repro_torch.models import transformer
+    from repro_torch.roofline.analysis import model_flops_estimate
+    from repro_torch.roofline.params import param_count
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1484,12 +1692,13 @@ def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formul
     train_step = spmd.make_train_step(cfg, opt, "shadow")
     sync_step = spmd.make_sync_step(cfg, sync_cfg)
     trans = tok.make_transition(LM_STREAM_VOCAB, seed=0)
-    batches = [{"tokens": tok.gen_batch(trans, 0, it, LM_R * LM_B, LM_S)["tokens"]
-                .reshape(LM_R, LM_B, LM_S).cuda()} for it in range(LM_WARM + LM_ITERS + 1)]
+    batches = [{"tokens": tok.gen_batch(trans, 0, it, LM_R * batch, seq)["tokens"]
+                .reshape(LM_R, batch, seq).cuda(), **(extra(it) if extra else {})}
+               for it in range(LM_WARM + LM_ITERS + 1)]
     torch.cuda.synchronize()
     emit({"phase": f"{path}_setup", "arch": cfg.name, "n_layers": cfg.n_layers, **setup,
           "dtype": cfg.dtype, "leaf_dtypes": dtypes, "params": n_par, "replicas": LM_R,
-          "batch_per_replica": LM_B, "seq_len": LM_S, "stream_vocab": LM_STREAM_VOCAB,
+          "batch_per_replica": batch, "seq_len": seq, "stream_vocab": LM_STREAM_VOCAB,
           "setup_s": time.perf_counter() - t0,
           "allocated_GB": torch.cuda.memory_allocated() / 1e9,
           "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9})
@@ -1531,7 +1740,7 @@ def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formul
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
     assert len(sync_ms) == LM_ITERS // LM_GAP, sync_ms
     med = sorted(iter_ms)[len(iter_ms) // 2]
-    tokens = LM_R * LM_B * LM_S
+    tokens = LM_R * batch * seq
     flops = flops_of(n_par, tokens)
     emit({"phase": path, "arch": cfg.name, "n_layers": cfg.n_layers, "iters": LM_ITERS,
           "ms_per_iter_median": med, "ms_per_iter": iter_ms,
@@ -1541,6 +1750,14 @@ def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formul
           "losses": losses, "all_leaves_finite_every_step": True, "peak_mem_GB": peak / 1e9,
           "model_flops_per_iter": flops, "mfu_formula": flops_formula,
           "mfu": flops / (med / 1e3) / BF16_RATE, "launches": 0, "profile": prof})
+    counted = param_count(cfg)
+    assert counted == n_par, (counted, n_par)
+    shape = InputShape(path, seq, LM_R * batch, "train")
+    emit({"phase": "model_flops", "path": path, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "param_count": counted, "params_drawn": n_par, "shape": dataclasses.asdict(shape),
+          "model_flops_per_iter": model_flops_estimate(cfg, shape),
+          "formula": "roofline.analysis.model_flops_estimate: 6 * active params * global_batch"
+                     " * seq_len", "smoke_flops_per_iter": flops})
     del state, batches
     release(torch)
 
@@ -2931,12 +3148,16 @@ def main() -> int:
     k9_row["moe_path_ms"] = lm_families_phase(torch, mem_rate, all_ops, path_counts)
     k9_row["launches_serve_moe"] = path_counts["serve_moe"]["flash_attention"]
     k9_row["launches_serve_swa"] = path_counts["serve_swa"]["flash_attention"]
+    # 10 · the vlm and audio families
+    k9_row.update(vlm_audio_phase(torch, mem_rate, all_ops, path_counts))
+    k9_row["launches_serve_whisper"] = path_counts["serve_whisper"]["flash_attention"]
+    k9_row["launches_serve_llava"] = path_counts["serve_llava"]["flash_attention"]
     k9_row["launches_families_reference"] = {
         p[len("families_reference_"):]: c["flash_attention"] for p, c in path_counts.items()
         if p.startswith("families_reference_")}
     k8_row["launches"] = sum(c["interaction"] for c in path_counts.values())  # no path runs K8
 
-    # 10 · the kernel table, the card, the result
+    # 11 · the kernel table, the card, the result
     main_path_of = {"replica_mean": "sim_ma", "ma_update": "sim_ma",
                     "replica_mean_rows": "elastic_ma", "ma_update_rows": "elastic_ma",
                     "bmuf_update": "sim_bmuf", "bmuf_update_rows": "elastic_bmuf",
@@ -2951,6 +3172,7 @@ def main() -> int:
         op = k if k in all_ops else k.rsplit("_", 2)[0]
         row["launches_lm_train"] = path_counts["lm_train"][op]
         row["launches_lm_train_mamba2"] = path_counts["lm_train_mamba2"][op]
+        row["launches_lm_train_whisper"] = path_counts["lm_train_whisper"][op]
         row["launches_serve_mamba2"] = path_counts["serve_mamba2"][op]
     emit({"kernels": [{k: v for k, v in row.items() if k != "tol"} for row in rows.values()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

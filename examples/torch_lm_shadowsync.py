@@ -7,8 +7,10 @@ training with a background sync program, on the CUDA card unless
 Two replicas of a reduced LM train on disjoint Markov streams with NO
 gradient exchange; a separate sync_step (Shadow-MA by default) reconciles
 them periodically (``examples/lm_shadowsync.py``'s run; see
-``src/repro_torch/core/spmd.py``). The vlm and audio families are not
-ported yet and are refused, naming their ROADMAP item.
+``src/repro_torch/core/spmd.py``). As there, an audio arch (whisper) gets
+stubbed conv-frontend frames and a vlm arch (llava) stubbed vision-tower
+patch embeddings beside its tokens, Normal * 0.1 drawn anew each iteration
+(from numpy, seeded by the iteration).
 """
 import argparse
 
@@ -51,6 +53,13 @@ def main(argv=None):
     losses = []
     for it in range(args.iters):
         b = tok.gen_batch(trans, 0, it, 8 * R, 64)
+        rng = np.random.default_rng(it)
+        if cfg.family == "audio":  # stubbed conv-frontend embeddings
+            b["frames"] = torch.from_numpy(
+                rng.standard_normal((8 * R, cfg.encoder.n_ctx, cfg.d_model), np.float32) * 0.1)
+        if cfg.family == "vlm":  # stubbed vision-tower patch embeddings
+            b["prefix_embeds"] = torch.from_numpy(
+                rng.standard_normal((8 * R, cfg.frontend.n_tokens, cfg.d_model), np.float32) * 0.1)
         batch = T.map(lambda x: x.reshape(R, 8, *x.shape[1:]).to(device), b)
         stack, opt_stack, loss = train_step(stack, opt_stack, batch)
         losses.append(float(loss.mean()))

@@ -17,13 +17,13 @@ into the stacks leaf by leaf (``optim.update_in_place``), bitwise the
 functional update. So a step updates ``params`` and ``opt_state`` in place
 and returns them.
 
-The dense, moe, ssm and hybrid families train here; their trees may mix
-dtypes (mamba2's f32 ``A_log``, ``dt_bias`` and ``D`` and the MoE router
-beside bf16 weights), which every update and sync keeps leaf by leaf. The
-reference's mesh (its ``spmd_axis_name``, the syncdp all-reduce) is not
-ported: one process, one device (ROADMAP queue 1, 'sharding, dry run, mesh
-and roofline'). The audio family raises (ROADMAP queue 1, 'the other LM
-families'), and the vlm family with it (``transformer.check_ported``).
+Every family trains and serves here: the dense, moe, ssm, hybrid and vlm
+ones through ``models/transformer.py``, the audio one (whisper) through
+``models/whisper.py``. Trees may mix dtypes (mamba2's f32 ``A_log``,
+``dt_bias`` and ``D`` and the MoE router beside bf16 weights), which every
+update and sync keeps leaf by leaf. The reference's mesh (its
+``spmd_axis_name``, the syncdp all-reduce) is not ported: one process, one
+device (ROADMAP queue 1, 'sharding, dry run, mesh and roofline').
 """
 from __future__ import annotations
 
@@ -36,25 +36,24 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import algorithms
 from repro_torch.core import sync as S
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
+from repro_torch.models.layers import mm
 
 Tree = Any
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError(f"{cfg.name}: the audio family (whisper) is not yet ported "
-                                  "(ROADMAP queue 1, 'the other LM families')")
-
-
 def _loss_fn(cfg: ArchConfig, remat_policy: str = "full") -> Callable:
-    _check_family(cfg)
+    """The training loss: whisper's with no unit remat (as the reference's),
+    every other family's with full remat."""
     transformer.check_remat_policy(remat_policy)
+    if cfg.family == "audio":
+        return lambda p, b: whisper.loss_fn(p, cfg, b)
     return lambda p, b: transformer.loss_fn(p, cfg, b, remat=True, remat_policy=remat_policy)
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, device=None, dtype=None) -> Tree:
-    _check_family(cfg)
+    if cfg.family == "audio":
+        return whisper.init_params(cfg, gen, device=device, dtype=dtype)
     return transformer.init_params(cfg, gen, device=device, dtype=dtype)
 
 
@@ -70,11 +69,17 @@ def _accum_grads(loss_fn: Callable, params: Tree, batch: Tree, n_microbatches: i
     """(grads, loss) of ``loss_fn`` at ``params`` (leaves that require
     grad). With K > 1 microbatches (the batch dim split K ways, in order),
     the gradients are summed in ``grad_dtype`` and divided by K, as the
-    losses are; with K = 1 the gradients are the raw ones, uncast."""
+    losses are; with K = 1 the gradients are the raw ones, uncast. A leaf
+    the loss does not read (llava's projector, trained on tokens alone)
+    gets zeros, as under ``jax.grad``."""
     leaves = T.leaves(params)
+
+    def grad(loss):
+        return torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+
     if n_microbatches <= 1:
         loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = grad(loss)
         return T.unflatten(params, list(grads)), loss.detach()
     k = n_microbatches
     mb = T.map(lambda x: x.reshape(k, x.shape[0] // k, *x.shape[1:]), batch)
@@ -82,7 +87,7 @@ def _accum_grads(loss_fn: Callable, params: Tree, batch: Tree, n_microbatches: i
     acc_l = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for j in range(k):
         loss = loss_fn(params, S.tree_slice(mb, j))
-        for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+        for a, g in zip(acc, grad(loss)):
             a.add_(g.to(grad_dtype))
         acc_l = acc_l + loss.detach()
     return T.unflatten(params, [a / float(k) for a in acc]), acc_l / float(k)
@@ -139,27 +144,50 @@ def make_sync_step(cfg: ArchConfig, sync_cfg: S.SyncConfig) -> Callable:
 
 
 def make_prefill_step(cfg: ArchConfig, s_max: int) -> Callable:
-    """prefill(params, {"tokens": (B, S)}) -> (last logits, cache), without
-    gradients (the prefill form: K9 on the card)."""
-    _check_family(cfg)
+    """prefill(params, batch) -> (last logits, cache), without gradients
+    (the prefill form: K9 on the card). batch: {"tokens": (B, S)[,
+    "prefix_embeds": (B, P, d)]}, or for audio {"tokens", "frames": (B,
+    n_ctx, d)}.
+
+    The audio prefill is the reference's, literally
+    (``repro/core/spmd.py:128-135``): its self-attention cache is
+    ``init_cache``'s zeros (the prompt's own K/V are never cached), its
+    cross cache the encoder's K/V, and its logits ``hidden[:, -1] @
+    table.T`` over the padded vocabulary with nothing masked."""
+    if cfg.family == "audio":
+        @torch.no_grad()
+        def prefill(params, batch):
+            enc_out = whisper.encode(params, cfg, batch["frames"])
+            hidden = whisper.decode_full(params, cfg, batch["tokens"], enc_out,
+                                         return_hidden=True)
+            logits = mm(hidden[:, -1, :], params["embed"]["table"].T)
+            cache = whisper.init_cache(cfg, batch["tokens"].shape[0], s_max,
+                                       device=hidden.device)
+            return logits, {"self": cache["self"],
+                            "cross": whisper.build_cross_cache(params, cfg, enc_out)}
+
+        return prefill
 
     @torch.no_grad()
     def prefill(params, batch):
-        return transformer.prefill(params, cfg, batch["tokens"], s_max)
+        return transformer.prefill(params, cfg, batch["tokens"], s_max,
+                                   prefix_embeds=batch.get("prefix_embeds"))
 
     return prefill
 
 
 def make_decode_step(cfg: ArchConfig) -> Callable:
-    _check_family(cfg)
+    """decode(params, cache, token (B,), pos) -> (logits (B, vocab_size),
+    cache), the cache written in place, without gradients."""
+    model = whisper if cfg.family == "audio" else transformer
 
     @torch.no_grad()
     def decode(params, cache, token, pos):
-        return transformer.decode_step(params, cfg, cache, token, int(pos))
+        return model.decode_step(params, cfg, cache, token, int(pos))
 
     return decode
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=None, device=None) -> Tree:
-    _check_family(cfg)
-    return transformer.init_cache(cfg, batch, s_max, dtype=dtype, device=device)
+    model = whisper if cfg.family == "audio" else transformer
+    return model.init_cache(cfg, batch, s_max, dtype=dtype, device=device)

@@ -79,7 +79,9 @@ def lm_params_from_numpy(tree: Tree, device="cpu") -> Tree:
     or bfloat16, side by side in one tree where the model keeps some leaves
     f32: mamba2's ``A_log``, ``dt_bias``, ``D``, the MoE router) -> the
     port's parameters, each leaf in its own dtype: the same keys and the
-    same stacked ``unit`` tuple (``models/transformer.py``)."""
+    same stacked ``unit`` tuple (``models/transformer.py``), llava's
+    ``projector`` among them; for whisper the stacked ``enc`` and ``dec``
+    trees (``models/whisper.py``)."""
     return T.map(lambda x: _tensor(x, device), tree)
 
 

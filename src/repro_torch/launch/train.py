@@ -260,9 +260,17 @@ def run_lm(args) -> dict:
     """The reference's ``run_lm``: R replicas of ``reduced(arch)`` train on
     the stream's batches (R x batch-size sequences an iteration), the sync
     step lands every ``--sync-gap`` iterations. Returns the mean loss of the
-    first and last five iterations, and every iteration's mean loss."""
+    first and last five iterations, and every iteration's mean loss. A vlm
+    trains on the stream's tokens alone, as the reference's does; the
+    stream carries no audio frames, so the audio family is refused (the
+    reference's ``run_lm`` fails on the missing key inside its loss)."""
     device = resolve_device(args.device)
     cfg = reduced(get_config(args.arch))
+    if cfg.family == "audio":
+        raise SystemExit(f"{args.arch}: the lm launcher's token stream carries no audio "
+                         "frames, which the audio family's loss needs; train it through "
+                         "core/spmd.py with a batch of {'tokens', 'frames'} "
+                         "(examples/torch_lm_shadowsync.py)")
     opt = optim.make(args.optimizer, args.lr)
     R = args.replicas
     sync_cfg = SyncConfig(algo=args.algo, alpha=args.alpha).validate()

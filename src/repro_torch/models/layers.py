@@ -1,18 +1,21 @@
-"""Layer helpers (the parts of ``repro/models/layers.py`` that DLRM and the
-LM serving and training paths need).
+"""Layer helpers, the twin of ``repro/models/layers.py``.
 
 Parameters are plain dicts of tensors, as in the reference. Linear weights
 are ``(d_in, d_out)`` and applied as ``x @ w``. The reference's sharding
-constraints (``constrain``) are identity without a mesh and are dropped;
-``layernorm`` and ``gelu_mlp`` wait for the slice that uses them. Where the
-reference wraps a block in ``jax.checkpoint``, the port uses
-``torch.utils.checkpoint`` without re-entry (``remat``).
+constraints (``constrain``) are identity without a mesh and are dropped.
+Where the reference wraps a block in ``jax.checkpoint``, the port uses
+``torch.utils.checkpoint`` without re-entry (``remat``). Where a product's
+operands differ in dtype (whisper's f32 frames on bf16 weights), ``mm`` and
+``promoted`` follow JAX's type promotion, which ``torch.matmul`` and
+``torch.einsum`` do not.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import gqa_attention_op
@@ -26,6 +29,20 @@ def remat(fn: Callable, *args):
     so tensors ``fn`` closes over get their gradients and views stay views;
     the blocks draw no random numbers, so no RNG state is kept."""
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors cast to their common dtype under type promotion, as JAX
+    promotes an operation's operands (bf16 with f32 is f32)."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return tuple(t.to(dt) for t in ts)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the operands' promoted dtype (JAX's f32 @ bf16 is f32)."""
+    if a.dtype != b.dtype:
+        a, b = promoted(a, b)
+    return a @ b
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -55,6 +72,20 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = x32.square().mean(-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In f32 with the population variance (``jnp.var``), cast back to x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +119,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal; full-sequence through K9, one-token decode plain)
+# Attention (GQA; full-sequence self-attention through K9, the rest plain)
 # ---------------------------------------------------------------------------
 
 def attention_init(draw, cfg, dtype) -> Params:
@@ -111,31 +142,39 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def _sdpa_block(q, k, v, mask, scale):
-    """q: (B,Sq,H,D), k/v: (B,Sk,H,D), mask: (Sq,Sk) or (B,1,Sq,Sk) bool.
-    The scale and the mask go in place on the f32 scores (neither one's
-    backward reads them): two f32 (Sq, Sk) tiles fewer a block."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float().mul_(scale)
-    scores = scores.masked_fill_(~mask, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    """q: (B,Sq,H,D), k/v: (B,Sk,H,D), mask: (Sq,Sk) or (B,1,Sq,Sk) bool, or
+    None for every key. The scale and the mask go in place on the f32
+    scores (neither one's backward reads them): two f32 (Sq, Sk) tiles
+    fewer a block. Operands of two dtypes are promoted, as in JAX; the
+    probabilities take q's own dtype."""
+    qp, k = promoted(q, k)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qp, k).float().mul_(scale)
+    if mask is not None:
+        scores = scores.masked_fill_(~mask, -1e30)
+    probs, v = promoted(torch.softmax(scores, dim=-1).to(q.dtype), v)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 Q_CHUNK = 1024  # the plain path's query rows a block (the reference's default)
 
 
-def _chunked_attention(q, k, v, positions, cfg) -> torch.Tensor:
+def _chunked_attention(q, k, v, positions, cfg, causal: bool = True) -> torch.Tensor:
     """The reference's full-sequence path (``repro/models/layers.py:147-185``):
     ``_sdpa_block`` over query chunks of ``Q_CHUNK`` rows (the largest chunk
-    that divides S when ``Q_CHUNK`` does not), so a (chunk, S) score tile is
-    the largest live one; when ``q`` needs a gradient each chunk is
-    recomputed in the backward pass. Plain torch, differentiable on every
-    device, with or without a sliding window."""
+    that divides S when ``Q_CHUNK`` does not: 750 for whisper's 1,500
+    frames), so a (chunk, Sk) score tile is the largest live one; when ``q``
+    needs a gradient each chunk is recomputed in the backward pass. Causal
+    (and windowed, where the config has a window), or every key when not
+    ``causal`` (then k and v may be longer than q: cross-attention). Plain
+    torch, differentiable on every device."""
     B, S, H, hd = q.shape
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     scale = hd ** -0.5
 
     def block_mask(q_pos):
+        if not causal:
+            return None
         m = q_pos[:, None] >= positions[None, :]
         if cfg.sliding_window is not None:
             m &= q_pos[:, None] - positions[None, :] < cfg.sliding_window
@@ -163,34 +202,60 @@ def attention_apply(
     cfg,
     *,
     positions: torch.Tensor,
+    causal: bool = True,
+    cross_kv: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
     return_kv: bool = False,
     rope=None,
     train: bool = False,
 ):
-    """Full-sequence causal self-attention after RoPE, in one of two forms
-    the caller picks. The prefill form (``train=False``) goes through
-    ``gqa_attention_op``: K9 on the card, its plain version on the CPU; K9
-    has no backward, so its wrapper refuses a card input that needs a
-    gradient. K9 has no window: a sliding window takes the reference's
-    query-chunked plain path (``_chunked_attention``) on every device. The
-    training form (``train=True``) is that path too, windowed or not, its
-    chunks recomputed in the backward pass. With ``return_kv`` also returns
-    the roped k and the v, (B, S, n_kv, hd) each, for the cache (the
-    reference recomputes them; they are the same tensors). ``rope``: the
-    positions' ``rope_tables``."""
+    """Full-sequence attention, causal (``causal``) or over every key, in one
+    of two forms the caller picks. Self-attention in the prefill form
+    (``train=False``) goes through ``gqa_attention_op``: K9 on the card,
+    its plain version on the CPU; K9 has no backward, so its wrapper
+    refuses a card input that needs a gradient. K9 has no window: a
+    sliding window takes the reference's query-chunked plain path
+    (``_chunked_attention``) on every device. The training form
+    (``train=True``) is that path too, windowed or not, its chunks
+    recomputed in the backward pass. ``cross_kv = (enc, _)`` attends to
+    the encoder's output instead (whisper's decoder): k and v projected
+    from ``enc``, no RoPE, every key, always on the plain path (K9 takes
+    Sq == Sk only). With ``return_kv`` (self-
+    attention) also returns the roped k and the v, (B, S, n_kv, hd) each,
+    for the cache (the reference recomputes them; they are the same
+    tensors). ``rope``: the positions' ``rope_tables``."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = mm(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    if cross_kv is not None:
+        enc = cross_kv[0]
+        Sk = enc.shape[1]
+        k = mm(enc, p["wk"]).reshape(B, Sk, cfg.n_kv_heads, hd)
+        v = mm(enc, p["wv"]).reshape(B, Sk, cfg.n_kv_heads, hd)
+        out = _chunked_attention(q, k, v, positions, cfg, causal=False)
+        return mm(out.reshape(B, S, cfg.n_heads * hd), p["wo"])
+    k = mm(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = mm(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta, rope)
     k = apply_rope(k, positions, cfg.rope_theta, rope)
     if train or cfg.sliding_window is not None:
-        out = _chunked_attention(q, k, v, positions, cfg)
+        out = _chunked_attention(q, k, v, positions, cfg, causal=causal)
     else:
-        out = gqa_attention_op(q, k, v, causal=True)
-    y = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
+        out = gqa_attention_op(q, k, v, causal=causal)
+    y = mm(out.reshape(B, S, cfg.n_heads * hd), p["wo"])
     return (y, k, v) if return_kv else y
+
+
+def _decode_attend(q, k, v, n_kv: int) -> torch.Tensor:
+    """One query position against (B, L, n_kv, hd) keys and values, the
+    query heads grouped onto their KV head instead of a repeated copy.
+    Scores and softmax in f32, the probabilities in q's dtype; operands of
+    two dtypes promoted as in JAX. Returns (B, 1, n_heads * hd)."""
+    B, _, H, hd = q.shape
+    qg = q.reshape(B, n_kv, H // n_kv, hd)
+    qp, k = promoted(qg, k)
+    scores = torch.einsum("bgrd,bkgd->bgrk", qp, k).float() * hd ** -0.5
+    probs, v = promoted(torch.softmax(scores, dim=-1).to(q.dtype), v)
+    return torch.einsum("bgrk,bkgd->bgrd", probs, v).reshape(B, 1, H * hd)
 
 
 def attention_decode(
@@ -200,32 +265,33 @@ def attention_decode(
     cache: Params,
     pos: int,
     rope=None,
+    *,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """One-token decode. x: (B, 1, d); cache: {"k","v"}: (B, S_max, n_kv, hd);
     ``pos`` a host int; ``rope`` its ``rope_tables`` when the caller has
     them. The new K/V are written into the cache in place (the
     reference's ``dynamic_update_slice``); the query attends to positions
     ``0..pos`` (the reference masks the rest of ``S_max``, which adds exact
-    zeros), with the query heads grouped onto their KV head instead of a
-    repeated copy of the cache."""
+    zeros). With ``cross_kv = (k, v)`` (the encoder's precomputed K/V,
+    (B, Sk, n_kv, hd)) the query, unroped, attends to all of them and the
+    cache is returned untouched."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     n_kv = cfg.n_kv_heads
-    n_rep = cfg.n_heads // n_kv
+    q = mm(x, p["wq"]).reshape(B, 1, cfg.n_heads, hd)
+    if cross_kv is not None:
+        return mm(_decode_attend(q, cross_kv[0], cross_kv[1], n_kv), p["wo"]), cache
     if rope is None and cfg.rope_theta > 0:
         rope = rope_tables(torch.full((1,), pos, device=x.device), hd, cfg.rope_theta)
-    q = apply_rope((x @ p["wq"]).reshape(B, 1, cfg.n_heads, hd), None, cfg.rope_theta, rope)
-    k_new = apply_rope((x @ p["wk"]).reshape(B, 1, n_kv, hd), None, cfg.rope_theta, rope)
-    v_new = (x @ p["wv"]).reshape(B, 1, n_kv, hd)
+    q = apply_rope(q, None, cfg.rope_theta, rope)
+    k_new = apply_rope(mm(x, p["wk"]).reshape(B, 1, n_kv, hd), None, cfg.rope_theta, rope)
+    v_new = mm(x, p["wv"]).reshape(B, 1, n_kv, hd)
     cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
     cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
     lo = 0 if cfg.sliding_window is None else max(0, pos - cfg.sliding_window + 1)
-    k, v = cache["k"][:, lo:pos + 1], cache["v"][:, lo:pos + 1]  # (B, L, n_kv, hd)
-    qg = q.reshape(B, n_kv, n_rep, hd)
-    scores = torch.einsum("bgrd,bkgd->bgrk", qg, k).float() * hd ** -0.5
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bgrk,bkgd->bgrd", probs, v)
-    return out.reshape(B, 1, cfg.n_heads * hd) @ p["wo"], cache
+    out = _decode_attend(q, cache["k"][:, lo:pos + 1], cache["v"][:, lo:pos + 1], n_kv)
+    return mm(out, p["wo"]), cache
 
 
 def init_attention_cache(cfg, batch: int, s_max: int, dtype, device=None,
@@ -239,7 +305,7 @@ def init_attention_cache(cfg, batch: int, s_max: int, dtype, device=None,
 
 
 # ---------------------------------------------------------------------------
-# MLP, embedding
+# MLPs, embedding
 # ---------------------------------------------------------------------------
 
 def swiglu_init(draw, d_model: int, d_ff: int, dtype) -> Params:
@@ -251,7 +317,16 @@ def swiglu_init(draw, d_model: int, d_ff: int, dtype) -> Params:
 
 
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def gelu_mlp_init(draw, d_model: int, d_ff: int, dtype) -> Params:
+    return {"w_up": draw(d_model, d_ff, dtype), "w_down": draw(d_ff, d_model, dtype)}
+
+
+def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """No biases; ``jax.nn.gelu``'s default, the tanh approximation."""
+    return mm(F.gelu(mm(x, p["w_up"]), approximate="tanh"), p["w_down"])
 
 
 def embed_init(draw, vocab: int, d_model: int, dtype) -> Params:
@@ -295,9 +370,9 @@ def chunked_softmax_ce(
     n = -(-S // chunk)
     pad = n * chunk - S
     if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-        labels = torch.nn.functional.pad(labels, (0, pad))
-        weights = torch.nn.functional.pad(weights, (0, pad))
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        weights = F.pad(weights, (0, pad))
     masked = torch.arange(V, device=x.device) >= vocab_limit
 
     def body(xc, lc, wc):

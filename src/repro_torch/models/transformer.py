@@ -1,6 +1,7 @@
-"""Decoder stack for the dense, moe, ssm and hybrid families: full-sequence
-``forward`` and the next-token ``loss_fn`` (train), ``prefill`` (forward +
-cache build) and ``decode_step`` (one token against the cache).
+"""Decoder stack for the dense, moe, ssm, hybrid and vlm families:
+full-sequence ``forward`` and the next-token ``loss_fn`` (train),
+``prefill`` (forward + cache build) and ``decode_step`` (one token against
+the cache). The audio family (whisper) is ``models/whisper.py``.
 
 The reference's stacked layout is kept: layers are grouped by the repeating
 ``layer_pattern`` unit ('A' attention, 'M' mamba2) and each unit position's
@@ -17,7 +18,7 @@ its subject.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -47,12 +48,6 @@ from repro_torch.models.moe import moe_apply, moe_init
 
 def check_ported(cfg: ArchConfig) -> None:
     """Refuse what the port does not compute yet, before any weight is drawn."""
-    if cfg.family == "audio" or (cfg.frontend is not None and cfg.frontend.kind == "audio"):
-        raise NotImplementedError(f"{cfg.name}: the audio family (whisper) is not yet ported "
-                                  "(ROADMAP queue 1, 'the other LM families', audio)")
-    if cfg.family == "vlm" or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the vision frontend (vlm) is not yet ported "
-                                  "(ROADMAP queue 1, 'the other LM families', vlm)")
     if cfg.parallel_block:
         raise NotImplementedError(f"{cfg.name}: parallel_block (a dry-run variant) is not yet "
                                   "ported (ROADMAP queue 1, 'sharding, dry run, mesh and "
@@ -101,13 +96,31 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, kind: str, pos: int, dtyp
     return p
 
 
+def stack_layers(make_layer: Callable[[], Params], n: int) -> Params:
+    """``n`` layers from ``make_layer()``, each leaf stacked over a leading
+    dim of ``n``: the stack is allocated at the first layer and filled one
+    layer at a time, so the peak stays near the stack's own size plus one
+    layer (the reference stacks a list of whole layers)."""
+    stacked = None
+    for r in range(n):
+        layer = make_layer()
+        if stacked is None:
+            stacked = T.map(lambda x: torch.empty((n, *x.shape), dtype=x.dtype,
+                                                  device=x.device), layer)
+        T.map(lambda dst, src: dst[r].copy_(src), stacked, layer)
+        del layer
+    return stacked
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator, device=None, dtype=None) -> Params:
     """Random weights in the reference's tree layout, each drawn on
     ``gen``'s device as the reference draws it, cast to ``dtype`` (the
     config's by default; mamba2's ``A_log``, ``dt_bias``, ``D`` and the MoE
     router stay f32) and moved to ``device``. Each unit position's
-    leaves are allocated stacked over the repeats and filled one layer at a
-    time, so the peak stays near the weights' own size plus one layer."""
+    leaves are stacked over the repeats (``stack_layers``). A vision
+    frontend adds ``projector.w`` (d_model, d_model), drawn after the head
+    from the same generator (the reference draws it on its ``lm_head``'s
+    key)."""
     check_ported(cfg)
     dtype = dtype or dtype_of(cfg.dtype)
     device = torch.device(device) if device is not None else gen.device
@@ -117,24 +130,16 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device=None, dtype=None) 
 
     unit, repeats = _unit_info(cfg)
     kinds = cfg.layer_kinds()
-    unit_params = []
-    for pos in range(unit):
-        stacked = None
-        for r in range(repeats):
-            layer = _layer_init(gen, cfg, kinds[pos], pos, dtype, device)
-            if stacked is None:
-                stacked = T.map(lambda x: torch.empty((repeats, *x.shape), dtype=x.dtype,
-                                                      device=x.device), layer)
-            T.map(lambda dst, src: dst[r].copy_(src), stacked, layer)
-            del layer
-        unit_params.append(stacked)
     params = {
+        "unit": tuple(stack_layers(lambda: _layer_init(gen, cfg, kinds[pos], pos, dtype, device),
+                                   repeats) for pos in range(unit)),
         "embed": embed_init(draw, padded_vocab(cfg), cfg.d_model, dtype),
-        "unit": tuple(unit_params),
         "final_norm": rmsnorm_init(cfg.d_model, dtype, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": draw(cfg.d_model, padded_vocab(cfg), dtype)}
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        params["projector"] = {"w": draw(cfg.d_model, cfg.d_model, dtype)}
     return params
 
 
@@ -243,12 +248,30 @@ def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, cache=None,
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
+def embed_inputs(params: Params, tokens: torch.Tensor,
+                 prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tokens' embeddings, (B, S, d), with ``prefix_embeds`` (B, P, d)
+    (a vision frontend's stubbed patch embeddings) cast to the model's
+    dtype, projected where the tree has a ``projector`` and prepended:
+    (B, P + S, d)."""
+    x = embed_lookup(params["embed"], tokens)
+    if prefix_embeds is None:
+        return x
+    pe = prefix_embeds.to(x.dtype)
+    if "projector" in params:
+        pe = pe @ params["projector"]["w"]
+    return torch.cat([pe, x], dim=1)
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
             train: bool = False, remat: bool = False, remat_policy: str = "full",
             return_cache: bool = False, return_hidden: bool = False):
     """tokens: (B, S). Returns (logits, aux_loss[, cache]); with
-    ``return_hidden`` the final-norm hidden states instead of logits. The
-    cache is stacked over repeats, as the reference's scan stacks it:
+    ``return_hidden`` the final-norm hidden states instead of logits. With
+    ``prefix_embeds`` (B, P, d) the sequence is the projected prefix, then
+    the tokens (``embed_inputs``), positions 0..P+S-1 over both. The cache
+    is stacked over repeats, as the reference's scan stacks it:
     (repeats, B, S, n_kv, hd) per attention leaf, ``init_mamba_cache``'s
     layout for a mamba2 position.
 
@@ -263,7 +286,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
         check_remat_policy(remat_policy)
         if not train:
             raise ValueError("remat recomputes the training form: pass train=True")
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_inputs(params, tokens, prefix_embeds)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, S, device=x.device) if return_cache else None
     x, aux = _run_layers(params, cfg, x, cache, train=train, remat_units=remat)
@@ -275,12 +298,15 @@ def loss_fn(params: Params, cfg: ArchConfig, batch, *, remat: bool = False,
             remat_policy: str = "full", ce_chunk: int = 512) -> torch.Tensor:
     """Next-token LM loss through the training form, with the chunked
     softmax-CE (the (B, S, V) logits never exist), plus the MoE layers'
-    load-balance ``aux``. batch: {"tokens": (B, S)}. Position t predicts
+    load-balance ``aux``. batch: {"tokens": (B, S)[, "prefix_embeds": (B,
+    P, d)]}; the prefix's P hidden rows carry no loss. Position t predicts
     token t + 1; the last position has weight 0. The head is the embedding
     table's transpose when tied."""
     tokens = batch["tokens"]
-    hidden, aux = forward(params, cfg, tokens, train=True, remat=remat,
+    prefix = batch.get("prefix_embeds")
+    hidden, aux = forward(params, cfg, tokens, prefix_embeds=prefix, train=True, remat=remat,
                           remat_policy=remat_policy, return_hidden=True)
+    hidden = hidden[:, 0 if prefix is None else prefix.shape[1]:]
     B, S = tokens.shape
     labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
     weights = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
@@ -303,16 +329,18 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=None, device=None)
                  for kind in cfg.layer_kinds()[:unit])
 
 
-def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int
-            ) -> Tuple[torch.Tensor, Any]:
+def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int, *,
+            prefix_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Any]:
     """Full-context forward that also builds the serving cache. Returns
     (last-position logits (B, V_padded), cache of ``s_max`` positions). As in
     the reference, only the last position is projected, and onto the padded
     head without masking its padded columns (``decode_step`` slices them
     off). The cache is preallocated and written layer by layer. A mamba2
-    layer needs at least ``d_conv - 1`` prompt tokens for its conv state."""
+    layer needs at least ``d_conv - 1`` prompt tokens for its conv state.
+    ``prefix_embeds`` as in ``forward``: the cache then holds the prefix's
+    P positions before the tokens', and decoding goes on at P + S."""
     check_ported(cfg)
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_inputs(params, tokens, prefix_embeds)
     B, S, _ = x.shape
     if S > s_max:
         raise ValueError(f"prompt length {S} exceeds the cache's {s_max} positions")

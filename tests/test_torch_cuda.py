@@ -775,6 +775,27 @@ def test_flash_attention_bf16_tensor_core_edges(gen, s, n_rep, d, causal):
     assert ((got - want).norm() / want.norm()).item() <= 1e-2
 
 
+@pytest.mark.parametrize("b,s,h,kv,d,causal", [(4, 3136, 56, 8, 128, True),
+                                                (32, 1500, 8, 8, 64, False)],
+                         ids=["llava_gqa7", "whisper_encoder"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_vlm_and_audio_prefill_shapes(gen, b, s, h, kv, d, causal, dtype):
+    """llava-next-34b's prefill (2,880 prefix + 256 text positions, 56 query
+    heads on 8 KV heads of 128: a GQA ratio of 7, causal) and whisper's
+    encoder (1,500 frames, not a multiple of the 128-row tile, 8 heads of
+    64, every key). f32 at the reference's 2e-4; bf16 at the prefill
+    shape's atol 6e-3, rtol 1e-2 and 1e-2 in the relative norm."""
+    q = torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
+    k, v = (torch.randn((b, s, kv, d), generator=gen).to("cuda", dtype) for _ in range(2))
+    got = gqa_attention_op(q, k, v, causal=causal).float()
+    want = gqa_attention_ref(q, k, v, causal=causal).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-2, atol=6e-3)
+        assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
 def test_flash_attention_bf16_many_query_tiles(gen):
     """B*H = 96 (b, h) pairs with eight query tiles each (768 blocks, several
     waves of the card), causal, at the prefill shape's tolerance."""
@@ -987,3 +1008,50 @@ def test_mamba2_layer_on_the_card_follows_the_cpu(gen):
         torch.backends.cuda.matmul.allow_tf32 = allow
     for a, b in zip(T.leaves(out["cuda"]), T.leaves(out["cpu"])):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-base"])
+def test_reduced_vlm_and_audio_on_the_card_follow_the_cpu(gen, arch):
+    """Reduced llava (its image prefix) and whisper (its frames), f32, TF32
+    off: the same weights and inputs on the card and the CPU give the same
+    greedy tokens and logits within 2e-4, K9 once a prefill for each
+    self-attention layer (whisper: the encoder's and the decoder's), and
+    one shadow step (SGD) and an EASGD sync at the trajectory tolerance."""
+    from repro_torch.core import spmd
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import tokens as tok
+
+    cfg = reduced(get_config(arch))
+    params = spmd.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = serve.make_prompts(cfg, 2, 100, seed=0)
+    front = serve.make_frontend(cfg, 2, 0)
+    n_attn = cfg.n_layers + (cfg.encoder.n_layers if cfg.family == "audio" else 0)
+    toks = tok.gen_batch(tok.make_transition(cfg.vocab_size, seed=1), 1, 0, 4, 64)["tokens"]
+    batch = {"tokens": toks.reshape(2, 2, 64),
+             **{k: serve.make_frontend(cfg, 4, 1)[k].reshape(2, 2, *v.shape[1:])
+                for k, v in front.items()}}
+    sc = SyncConfig(algo="easgd", alpha=0.5).validate()
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = serve.generate(params, cfg, prompts, 8, frontend=front)
+        before = gqa_attention_op.launches
+        card = serve.generate(T.map(lambda x: x.cuda(), params), cfg, prompts.cuda(), 8,
+                              frontend=T.map(lambda x: x.cuda(), front))
+        assert gqa_attention_op.launches == before + n_attn
+        res = {}
+        for dev in ("cuda", "cpu"):
+            stack = spmd.stack_replicas(T.map(lambda t: t.to(dev), params), 2)
+            ps = algorithms.get("easgd").init_state(T.map(lambda t: t[0], stack), sc)
+            stack, _, loss = spmd.make_train_step(cfg, optim.sgd(0.1), "shadow")(
+                stack, (), T.map(lambda t: t.to(dev), batch))
+            stack, ps = spmd.make_sync_step(cfg, sc)(stack, ps)
+            res[dev] = T.map(lambda t: t.cpu(), (loss, stack, ps))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert torch.equal(card["tokens"].cpu(), cpu["tokens"])
+    for key in ("prefill_logits", "last_logits"):
+        torch.testing.assert_close(card[key].cpu(), cpu[key], rtol=2e-4, atol=2e-4)
+    for a, b in zip(T.leaves(res["cuda"]), T.leaves(res["cpu"])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+

@@ -169,7 +169,7 @@ def test_forward_takes_the_form_it_is_asked_for():
     """The training form is the caller's choice: the prefill form's logits
     equal the training form's (the plain K9 version on the CPU against the
     chunked attention), remat needs the training form, and save_comm (a
-    sharding policy) and the audio family raise."""
+    sharding policy) raises."""
     _, cfg = _cfgs("minicpm")
     params = _port(_jax_weights("minicpm"))
     toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 64)).long()
@@ -182,13 +182,6 @@ def test_forward_takes_the_form_it_is_asked_for():
         transformer.loss_fn(params, cfg, {"tokens": toks}, remat=True, remat_policy="save_comm")
     with pytest.raises(NotImplementedError, match="sharding, dry run"):
         spmd.make_train_step(cfg, optim.sgd(0.1), "shadow", remat_policy="save_comm")
-    audio = reduced(get_config("whisper-base"))
-    for fn in (lambda: spmd.init_params(audio, torch.Generator().manual_seed(0)),
-               lambda: spmd.make_train_step(audio, optim.sgd(0.1), "shadow"),
-               lambda: spmd.make_prefill_step(audio, 8), lambda: spmd.make_decode_step(audio),
-               lambda: spmd.init_cache(audio, 1, 8)):
-        with pytest.raises(NotImplementedError, match="the other LM families"):
-            fn()
 
 
 # ---------------------------------------------------------------------------
@@ -566,11 +559,12 @@ def test_update_in_place_is_bitwise_on_a_mixed_dtype_tree(name):
 @pytest.mark.parametrize("arch,batch,seq", [("mamba2-780m", "2", "32"),
                                             ("jamba-1.5-large-398b", "2", "32"),
                                             ("phi3.5-moe-42b-a6.6b", "2", "32"),
-                                            ("kimi-k2-1t-a32b", "1", "16")])
+                                            ("kimi-k2-1t-a32b", "1", "16"),
+                                            ("llava-next-34b", "2", "32")])
 def test_lm_launcher_trains_each_family_on_the_cpu(arch, batch, seq, capsys):
     """The ``lm`` launcher runs each family's reduced config, as the
     reference's ``run_lm`` does (kimi-k2 on fewer tokens: see
-    ``FAMILY_S``)."""
+    ``FAMILY_S``; llava on tokens alone, its projector unread)."""
     out = train.main(["lm", "--device", "cpu", "--arch", arch, "--iters", "10",
                       "--batch-size", batch, "--seq-len", seq])
     assert capsys.readouterr().out.startswith(f"{arch} x2 replicas [easgd]: loss ")

@@ -243,7 +243,7 @@ import dataclasses  # noqa: E402
 
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import transformer, whisper  # noqa: E402
 
 
 def test_port_scan_sees_the_serving_slice():
@@ -349,15 +349,29 @@ def test_serve_without_device_needs_the_card(no_cuda):
 
 def test_unported_families_are_refused_before_any_weight():
     gen = torch.Generator().manual_seed(0)
-    for arch in ("llava-next-34b", "whisper-base"):
-        cfg = reduced(get_config(arch))
-        toks = torch.zeros((1, 4), dtype=torch.long)
-        for fn in (lambda: transformer.init_params(cfg, gen, device="cpu"),
-                   lambda: transformer.prefill({}, cfg, toks, 8),
-                   lambda: transformer.decode_step({}, cfg, (), toks[:, 0], 4),
-                   lambda: transformer.init_cache(cfg, 1, 8, device="cpu")):
-            with pytest.raises(NotImplementedError, match="not yet ported"):
-                fn()
     cfg = dataclasses.replace(reduced(get_config("granite-20b")), parallel_block=True)
     with pytest.raises(NotImplementedError, match="parallel_block"):
         transformer.init_params(cfg, gen)
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-base"])
+def test_vlm_and_audio_models_draw_and_serve(arch):
+    """The vision frontend and the audio family, refused until they were
+    ported, now draw their weights and caches and serve a prompt on the CPU
+    through their model module (``transformer`` for llava, ``whisper``)."""
+    cfg = reduced(get_config(arch))
+    model = whisper if cfg.family == "audio" else transformer
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert ("projector" in params) == (cfg.family == "vlm")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    front = serve.make_frontend(cfg, 1, 0)
+    n_prefix = front["prefix_embeds"].shape[1] if "prefix_embeds" in front else 0
+    if cfg.family == "audio":
+        enc = whisper.encode(params, cfg, front["frames"])
+        cache = model.init_cache(cfg, 1, 8, device="cpu")
+        cache["cross"] = whisper.build_cross_cache(params, cfg, enc)
+    else:
+        _, cache = transformer.prefill(params, cfg, toks, n_prefix + 8,
+                                       prefix_embeds=front["prefix_embeds"])
+    logits, _ = model.decode_step(params, cfg, cache, toks[:, 0], n_prefix + 4)
+    assert tuple(logits.shape) == (1, cfg.vocab_size) and torch.isfinite(logits).all()

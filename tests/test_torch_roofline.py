@@ -1,0 +1,88 @@
+"""The port's parameter counts and model FLOPs (``roofline/params.py``,
+``roofline/analysis.py``) against the JAX package's, for every arch at its
+full config, and the reference's ``TestModelFlops``
+(``tests/test_roofline.py:60``) on the port.
+
+The counts are exact integers, so they are held equal. ``param_count``
+walks ``init_params`` on shapes alone: kimi-k2's 1.04 T parameters are
+counted without a byte of weights.
+"""
+import functools
+import resource
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)  # leave the other test workers their cores
+pytest.importorskip("jax")
+
+from repro.configs.base import get_config as jget_config  # noqa: E402
+from repro.roofline import analysis as jRA  # noqa: E402
+from repro.roofline import params as jparams  # noqa: E402
+from repro_torch.configs.base import ARCH_IDS, INPUT_SHAPES, get_config  # noqa: E402
+from repro_torch.roofline import analysis as RA  # noqa: E402
+from repro_torch.roofline.params import active_param_count, param_count  # noqa: E402
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_active(arch):
+    return jparams.active_param_count(jget_config(arch))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_counts_match_jax(arch):
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    assert param_count(cfg) == jparams.param_count(jcfg)
+    assert active_param_count(cfg) == _jax_active(arch)
+
+
+def test_param_count_allocates_nothing():
+    """kimi-k2 (about 1 T parameters, 2 TB in bf16) is counted on shapes
+    alone: the process's peak resident memory grows by less than 1 GB."""
+    cfg = get_config("kimi-k2-1t-a32b")
+    param_count.cache_clear()
+    before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss  # KiB on Linux
+    n = param_count(cfg)
+    grown = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before
+    assert 0.8e12 < n < 1.3e12 and grown < 2 ** 20, (n, grown)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_model_flops_match_jax(arch, monkeypatch):
+    """Every ``INPUT_SHAPES`` entry; the reference's active count is cached
+    across the shapes (its ``model_flops_estimate`` reads it at call time)."""
+    monkeypatch.setattr(jparams, "active_param_count", lambda c: _jax_active(c.name))
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    for name, shape in INPUT_SHAPES.items():
+        from repro.configs.base import INPUT_SHAPES as J_SHAPES
+
+        assert RA.model_flops_estimate(cfg, shape) == jRA.model_flops_estimate(jcfg,
+                                                                               J_SHAPES[name])
+
+
+class TestModelFlops:
+    """The reference's ``TestModelFlops`` on the port."""
+
+    def test_dense_6nd(self):
+        cfg = get_config("granite-20b")
+        mf = RA.model_flops_estimate(cfg, INPUT_SHAPES["train_4k"])
+        assert mf == pytest.approx(6.0 * param_count(cfg) * 256 * 4096)
+
+    def test_moe_active_params(self):
+        cfg = get_config("kimi-k2-1t-a32b")
+        total, active = param_count(cfg), active_param_count(cfg)
+        assert 0.8e12 < total < 1.3e12, total / 1e12  # ~1T
+        assert 20e9 < active < 60e9, active / 1e9  # ~32B active
+
+    def test_decode_counts_one_token(self):
+        cfg = get_config("granite-20b")
+        mf = RA.model_flops_estimate(cfg, INPUT_SHAPES["decode_32k"])
+        assert mf == pytest.approx(2.0 * param_count(cfg) * 128)
+
+    def test_enc_dec_and_vlm_as_the_reference_counts_them(self):
+        """whisper's encoder and decoder together (70,680,576 parameters);
+        llava with its projector (34,440,297,472), 2·N·D in prefill."""
+        w, v = get_config("whisper-base"), get_config("llava-next-34b")
+        assert param_count(w) == 70_680_576 and param_count(v) == 34_440_297_472
+        mf = RA.model_flops_estimate(v, INPUT_SHAPES["prefill_32k"])
+        assert mf == 2.0 * 34_440_297_472 * 32 * 32768

@@ -264,9 +264,9 @@ def test_warmup_runs_the_timed_shape_and_reps_repeat_the_prefill(monkeypatch):
     shapes = []
     real = transformer.prefill
 
-    def spy(params, cfg, tokens, s_max):
+    def spy(params, cfg, tokens, s_max, **kw):
         shapes.append(tuple(tokens.shape))
-        return real(params, cfg, tokens, s_max)
+        return real(params, cfg, tokens, s_max, **kw)
 
     monkeypatch.setattr(transformer, "prefill", spy)
     serve.warmup(params, cfg, prompts)
@@ -302,17 +302,13 @@ def test_decode_attends_only_to_filled_positions():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-base"])
-def test_serve_refuses_unported_families(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve.main(["--device", "cpu", "--arch", arch, "--prompt-len", "8", "--gen", "2"])
-
-
 @pytest.mark.parametrize("arch", [None, "jamba-1.5-large-398b", "phi3.5-moe-42b-a6.6b",
-                                  "kimi-k2-1t-a32b"], ids=["default", "jamba", "phi35moe", "kimi"])
+                                  "kimi-k2-1t-a32b", "llava-next-34b", "whisper-base"],
+                         ids=["default", "jamba", "phi35moe", "kimi", "llava", "whisper"])
 def test_serve_cli_serves_each_family(arch, capsys):
     """The launcher's default arch (mamba2-780m, reduced) and the other
-    families, on the CPU."""
+    families, on the CPU: llava with its image prefix, whisper with its
+    frames."""
     argv = ["--device", "cpu", "--batch", "2", "--prompt-len", "24", "--gen", "4"]
     out = serve.main(argv + ([] if arch is None else ["--arch", arch]))
     assert out["tokens"].shape == (2, 4) and out["logits_finite"]

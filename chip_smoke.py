@@ -84,7 +84,16 @@ Phases, each of which asserts (any failure exits non-zero):
      B=4 x S=2048 a replica): 2 warm-up and 10 timed iterations (median and
      spread, tokens/s, sync ms, peak memory, model FLOP utilisation), a
      profiled iteration's device idle share, a falling finite loss, and no
-     K1-K9 launch in the training window; then one step and a sync of a
+     K1-K9 launch in the training window; after its timed iterations, 3
+     more under full remat on its stacks, 3 under remat_policy="save_comm"
+     (a selective checkpoint keeping each unit's attention and FFN outputs)
+     and 3 with parallel_block (PaLM's block on the same weights), each
+     with its ms an iteration, peak memory and a finite loss; one counted
+     iteration each of full remat and save_comm (the policy keeps 2 products
+     a layer and replica, and the recompute runs R x layers fewer wo
+     products); before the full-width cell, reduced granite-20b's
+     save_comm gradients held against full remat's (rtol 1e-5, atol 1e-6,
+     bitwise or not reported); then one step and a sync of a
      reduced minicpm-2b on the card against the CPU, its weights and Adam
      state carried in as numpy (``interop.lm_train_state_from_numpy``);
      (phase 7 ends with cell 12: the same phi3 weights under CONFIG_SWA,
@@ -97,7 +106,9 @@ Phases, each of which asserts (any failure exits non-zero):
      finite; R=2 replicas of it trained as phase 8 trains minicpm-2b (every
      leaf finite after every step, a falling loss); phi3.5-moe's widths at
      16 of its 32 layers served (cell 11: K9 once a layer, the assignments
-     dropped per layer at capacity 1.25, two prefills bitwise equal); then
+     dropped per layer at capacity 1.25, two prefills bitwise equal), and
+     the same weights served as the parallel block (``serve_parallel``:
+     5 timed prefills, 31 decode steps, K9 16 times a prefill); then
      reduced mamba2, jamba, phi3.5-moe, kimi-k2 and a windowed phi3 on the
      card against the CPU (greedy tokens, logits within 2e-4, one shadow
      step and a sync at the trajectory tolerance);
@@ -118,7 +129,12 @@ Phases, each of which asserts (any failure exits non-zero):
      each trained cell (9, 10, 13) gives ``roofline.analysis``'s count with
      ``param_count`` beside it, asserted equal to the parameters drawn, as
      every cell's set-up line asserts;
- 11. the kernel table as one JSON line, then the result line.
+ 11. the dry run's roofline (``launch/dryrun.py``, traced on the host at
+     each cell's shape, K9 counted as the card runs it) beside the measured
+     times of cell 4's and cell 14's prefills and cell 9's shadow step and
+     EASGD sync step, with the predicted and measured peak memory; no
+     bound may exceed 1.05 times its measured time;
+ 12. the kernel table as one JSON line, then the result line.
 """
 import cProfile
 import dataclasses
@@ -249,6 +265,18 @@ FAM_REFERENCE = ("mamba2-780m", "jamba-1.5-large-398b", "phi3.5-moe-42b-a6.6b",
 AUD_ARCH, AUD_B, AUD_PROMPT, AUD_GEN, AUD_TRAIN_B, AUD_TRAIN_S = "whisper-base", 32, 4, 64, 8, 448
 VLM_ARCH, VLM_B, VLM_PROMPT, VLM_GEN = "llava-next-34b", 4, 256, 32
 
+# the variants of this slice: parallel_block served on cell 11's weights
+# (its widths at FAM_MOE_LAYERS layers, B=4 x 2,048, 5 timed prefills, 31
+# decode steps), and VARIANT_ITERS iterations of cell 9's stacks under
+# full remat, remat_policy="save_comm" and parallel_block, the first two
+# then one more iteration with their products counted; reduced granite-20b's
+# save_comm gradients against full remat's first, at the reference test's
+# tolerance and shape (B=2 x 32 tokens)
+VARIANT_ITERS, SAVE_COMM_TOL = 3, dict(rtol=1e-5, atol=1e-6)
+# the roofline check: no bound of the dry run's count above this share of
+# the measured time (a bound above it means the count is wrong)
+ROOFLINE_SLACK = 1.05
+
 # torch.profiler traces: the marker kernel (torch.cuda._sleep's) that opens
 # and closes the recorded run, its length, the card's clock for the pad
 # spins, and the pad before the run in each attempt (a trace that lost
@@ -292,11 +320,13 @@ def hits(dev_name, event_name):
 
 
 STARTED = time.perf_counter()
+ROWS = {}  # the last row emitted for each phase (the roofline check reads measured cells')
 
 
 def emit(obj):
     if "phase" in obj:  # seconds since the script started: where its time goes
         obj = {**obj, "at_s": time.perf_counter() - STARTED}
+        ROWS[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
 
@@ -1201,14 +1231,21 @@ def lm_train_phase(torch, all_ops, path_counts):
               "max_loss_diff_cuda_vs_cpu": max(abs(a - b) for a, b in zip(card, cpu)),
               "wall_s_cuda": runs["cuda"][1], "wall_s_cpu": runs["cpu"][1], "launches": 0})
 
-    # b · minicpm-2b at full width, its depth cut to LM_LAYERS
+    # a2 · reduced granite-20b's save_comm gradients against full remat's,
+    # on the card (f32, TF32 off; the reference's test)
+    save_comm_check(torch, all_ops, path_counts)
+
+    # b · minicpm-2b at full width, its depth cut to LM_LAYERS; then its
+    # stacks trained on under the two variants
     cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
     attn = (3 * 4 * LM_R * LM_B * cfg.n_heads * LM_S * LM_S * cfg.resolved_head_dim
             * cfg.n_layers)
     lm_train_cell(torch, cfg, "lm_train", all_ops, path_counts,
                   lambda n_par, tokens: 4 / 3 * (6 * n_par * tokens + attn),
                   "4/3 * (6 * params * tokens + 3 * 4 * R * B * heads * S^2 * head_dim"
-                  " * layers) / (median s * BF16_RATE)", cut=f"depth 40 -> {LM_LAYERS}")
+                  " * layers) / (median s * BF16_RATE)", cut=f"depth 40 -> {LM_LAYERS}",
+                  after=lambda state, batches, opt: lm_variants(torch, cfg, state, batches, opt,
+                                                                all_ops, path_counts))
 
     # c · one step and a sync of a reduced minicpm-2b, card against CPU:
     # weights, Adam's m, v, t (t=3, v well above the gradients' rounding,
@@ -1248,6 +1285,199 @@ def lm_train_phase(torch, all_ops, path_counts):
     emit({"phase": "lm_memory", "when": "after",
           "allocated_GB": torch.cuda.memory_allocated() / 1e9,
           "reserved_GB": torch.cuda.memory_reserved() / 1e9})
+
+
+def save_comm_check(torch, all_ops, path_counts):
+    """Reduced granite-20b (f32, TF32 off) on the card: the loss and every
+    gradient under remat_policy="save_comm" against full remat's, within
+    SAVE_COMM_TOL; emits whether they are bitwise equal."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = reduced(get_config("granite-20b"))
+    params = T.map(lambda x: x.cuda(), transformer.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    batch = {"tokens": serve.make_prompts(cfg, 2, 32, seed=0).cuda()}
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts(all_ops.values())
+    out = {}
+    try:
+        for policy in ("full", "save_comm"):
+            p = T.map(lambda a: a.detach().clone().requires_grad_(), params)
+            loss = transformer.loss_fn(p, cfg, batch, remat=True, remat_policy=policy)
+            out[policy] = [loss.detach()] + list(torch.autograd.grad(loss, T.leaves(p)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    counts = path_counts["save_comm_check"] = {k: op.launches for k, op in all_ops.items()}
+    assert not any(counts.values()), counts
+    for a, b in zip(out["save_comm"], out["full"]):
+        torch.testing.assert_close(a, b, **SAVE_COMM_TOL)
+    emit({"phase": "save_comm_check", "arch": "granite-20b reduced, f32, B=2 x 32",
+          "tol": SAVE_COMM_TOL, "tensors": len(out["full"]),
+          "bitwise_equal": all(torch.equal(a, b) for a, b in zip(out["save_comm"], out["full"])),
+          "max_abs_diff": max((a - b).abs().max().item()
+                              for a, b in zip(out["save_comm"], out["full"]))})
+
+
+def counted_iteration(torch, step, state, batch):
+    """One more iteration of ``step`` on ``state``, untimed, under a
+    dispatch mode that counts every ``aten.mm`` by its operands' shapes,
+    with every op a selective checkpoint's policy marks MUST_SAVE in a
+    forward pass counted too (tests/test_torch_perf_variants.py counts
+    both so on the CPU). Returns (products, kept, loss)."""
+    import collections
+
+    import torch.utils.checkpoint as C
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    kept, real = collections.Counter(), C.create_selective_checkpoint_contexts
+
+    def watched(policy, *a, **kw):
+        def pol(ctx, op, *args, **kwargs):
+            out = policy(ctx, op, *args, **kwargs)
+            if out == C.CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                kept[str(op)] += 1
+            return out
+
+        return real(pol, *a, **kw)
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.mm.default:
+                self.shapes[tuple(tuple(a.shape) for a in args)] += 1
+            return func(*args, **(kwargs or {}))
+
+    C.create_selective_checkpoint_contexts = watched
+    try:
+        with Products() as m:
+            state["stack"], state["opt"], loss = step(state["stack"], state["opt"], batch)
+        torch.cuda.synchronize()
+    finally:
+        C.create_selective_checkpoint_contexts = real
+    return m.shapes, kept, loss
+
+
+def lm_variants(torch, cfg, state, batches, opt, all_ops, path_counts):
+    """Cell 9's trained stacks on under the variants: VARIANT_ITERS timed
+    iterations each under full remat, remat_policy="save_comm" and
+    parallel_block (the same weights, PaLM's block), no sync between; each
+    run's ms an iteration, its peak memory (reset before it) and its
+    losses, every leaf finite, no K1-K9 launch. Full remat and save_comm
+    then take one more, counted iteration (``counted_iteration``): the
+    policy must keep each layer's wo and w_down products, one a mixer and
+    one an FFN, in every replica's forward pass, and the backward pass's
+    recompute must run R * n_layers fewer products of wo's shape under
+    save_comm than under full remat, and no other product more."""
+    from repro_torch import tree as T
+    from repro_torch.core import spmd
+
+    base, counted = None, {}
+    for path, vcfg, policy in (
+            ("lm_train_full_remat", cfg, "full"),
+            ("lm_train_save_comm", cfg, "save_comm"),
+            ("lm_train_parallel", dataclasses.replace(cfg, parallel_block=True), "full")):
+        step = spmd.make_train_step(vcfg, opt, "shadow", remat_policy=policy)
+        reset_counts(all_ops.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for it in range(VARIANT_ITERS):
+            t0 = time.perf_counter()
+            state["stack"], state["opt"], loss = step(state["stack"], state["opt"], batches[it])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.mean()))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not vcfg.parallel_block:
+            counted[policy] = counted_iteration(torch, step, state, batches[VARIANT_ITERS])
+            losses.append(float(counted[policy][2].mean()))
+        counts = path_counts[path] = {k: op.launches for k, op in all_ops.items()}
+        assert not any(counts.values()), (path, counts)
+        finite = bool(torch.stack([torch.isfinite(t).all()
+                                   for t in T.leaves((state["stack"], state["opt"]))]).all())
+        assert finite and all(math.isfinite(x) for x in losses), (path, losses)
+        row = {"phase": path, "arch": cfg.name, "n_layers": cfg.n_layers,
+               "remat_policy": policy, "parallel_block": vcfg.parallel_block,
+               "iters": VARIANT_ITERS, "ms_per_iter_median": sorted(ms)[len(ms) // 2],
+               "ms_per_iter": ms, "peak_mem_GB": peak, "losses": losses,
+               "all_leaves_finite": finite, "launches": 0}
+        if base is None:
+            base = row
+        else:
+            row.update({"full_remat_ms_per_iter": base["ms_per_iter_median"],
+                        "full_remat_peak_mem_GB": base["peak_mem_GB"],
+                        "cell9_timed_peak_mem_GB": ROWS["lm_train"]["peak_mem_GB"]})
+        if policy == "save_comm":
+            (full_mm, full_kept, _), (comm_mm, comm_kept, _) = counted["full"], counted["save_comm"]
+            hd = cfg.n_heads * cfg.resolved_head_dim
+            wo = ((LM_B * LM_S, hd), (hd, cfg.d_model))
+            row.update({"kept_by_policy": dict(comm_kept),
+                        "mm_per_iter": sum(comm_mm.values()),
+                        "full_remat_mm_per_iter": sum(full_mm.values()),
+                        "wo_products_skipped": (full_mm - comm_mm)[wo]})
+            assert not full_kept, full_kept
+            assert comm_kept == {"aten.mm.default": 2 * LM_R * cfg.n_layers}, comm_kept
+            assert full_mm - comm_mm == {wo: LM_R * cfg.n_layers}, full_mm - comm_mm
+            assert not comm_mm - full_mm, comm_mm - full_mm
+        emit(row)
+        del step
+        release(torch)
+
+
+def roofline_phase(torch):
+    """Phase 11: the dry run's count at the measured cells' shapes
+    (``launch/dryrun.py``: the step built on fake structures and traced on
+    their meta twins, on the host; K9 counted as the card runs it), its
+    roofline on the H100's data-sheet constants beside the measured time
+    and peak memory of this run. Fails where a bound exceeds
+    ROOFLINE_SLACK times the measured time: the count would be wrong."""
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis as RA
+
+    one = dryrun.ONE_CARD
+    cell9 = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    vlm = get_config(VLM_ARCH)
+    lm = ROWS["lm_train"]
+    sync_ms = sorted(lm["sync_ms"])[len(lm["sync_ms"]) // 2]
+    cells = (
+        ("cell 4 prefill", "serve_phi3", ROWS["serve_phi3"]["prefill_ms"],
+         ROWS["serve_phi3"]["peak_mem_GB"], get_config(SERVE_ARCH).n_layers,
+         lambda: dryrun.build(get_config(SERVE_ARCH), "cell4", one, shape_override=InputShape(
+             "cell4", SERVE_PROMPT, SERVE_B, "prefill"))),
+        ("cell 9 shadow step", "lm_train", lm["ms_per_iter_median"],
+         ROWS["lm_train_full_remat"]["peak_mem_GB"], 0,
+         lambda: dryrun.build(cell9, "cell9", one, mode="shadow", optimizer="adam",
+                              n_replicas=LM_R, n_microbatches=1, shape_override=InputShape(
+                                  "cell9", LM_S, LM_R * LM_B, "train"))),
+        ("cell 9 EASGD sync step", "lm_train", sync_ms, lm["peak_mem_GB"], 0,
+         lambda: dryrun.build_sync_step(LM_ARCH, one, algo="easgd", n_replicas=LM_R, cfg=cell9)),
+        ("cell 14 prefill", "serve_llava", ROWS["serve_llava"]["prefill_ms"],
+         ROWS["serve_llava"]["peak_mem_GB"], vlm.n_layers,
+         lambda: dryrun.build(vlm, "cell14", one, shape_override=InputShape(
+             "cell14", vlm.frontend.n_tokens + VLM_PROMPT, VLM_B, "prefill"))))
+    for name, path, measured, measured_peak, k9_calls, build in cells:
+        t0 = time.perf_counter()
+        cost = dryrun._trace_cost(build())
+        r = RA.analyze(cost, arch=name, shape=path, mode="one card")
+        bound = max(r.t_compute, r.t_memory) * 1e3
+        emit({"phase": "roofline_check", "cell": name, "measured_in": path,
+              "t_compute_ms": r.t_compute * 1e3, "t_memory_ms": r.t_memory * 1e3,
+              "bottleneck": r.bottleneck, "bound_ms": bound, "measured_ms": measured,
+              "measured_over_bound": measured / bound, "flops": r.flops_per_chip,
+              "bytes": r.bytes_per_chip, "k9_calls": cost.kernel_calls,
+              "arg_GB": r.arg_bytes / 1e9, "peak_GB": r.peak_bytes / 1e9,
+              "arg_plus_peak_GB": (r.arg_bytes + r.peak_bytes) / 1e9,
+              "measured_peak_GB": measured_peak, "trace_s": time.perf_counter() - t0})
+        assert cost.kernel_calls == k9_calls, (name, cost.kernel_calls)
+        assert bound <= ROOFLINE_SLACK * measured, (name, bound, measured)
 
 
 def draw_weights(torch, cfg, path):
@@ -1459,7 +1689,19 @@ def lm_families_phase(torch, mem_rate, all_ops, path_counts):
                 "capacity_decode": moe.capacity(moe_cfg, SERVE_B),
                 "dropped_share_per_layer": drops, "prefill_bitwise_repeatable": same})
     emit(row)
-    del params, prompts, la, lb, ca, cb, keeps
+    del prompts, la, lb, ca, cb, keeps
+    release(torch)
+
+    # d2 · the same weights served as PaLM's parallel block (one shared
+    # pre-norm, attention and MoE added together): K9 once a layer
+    par_cfg = dataclasses.replace(moe_cfg, parallel_block=True)
+    par, _ = serve_cell(torch, par_cfg, params, weight_bytes, "serve_parallel", all_ops,
+                        path_counts, par_cfg.n_layers, mem_rate)
+    par.update({"variant": "parallel_block", "cut": row["cut"],
+                "sequential_prefill_ms": row["prefill_ms"],
+                "sequential_decode_ms_per_step": row["decode_ms_per_step"]})
+    emit(par)
+    del params, par, row
     release(torch)
 
     # e · each family reduced (f32) on the card against the CPU, and a
@@ -1656,7 +1898,7 @@ def vlm_audio_phase(torch, mem_rate, all_ops, path_counts):
 
 
 def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formula,
-                  batch=LM_B, seq=LM_S, extra=None, **setup):
+                  batch=LM_B, seq=LM_S, extra=None, after=None, **setup):
     """Cells 9, 10 and 13 trained: LM_R replicas of ``cfg`` at full width,
     Adam, shadow EASGD every LM_GAP iterations, ``batch`` x ``seq`` tokens a
     replica on the Markov stream over the first LM_STREAM_VOCAB ids (and
@@ -1667,7 +1909,8 @@ def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formul
     (``flops_formula`` says how); ``setup`` goes into the set-up line. A
     ``model_flops`` line gives ``roofline.analysis.model_flops_estimate``'s
     count for the same shape, with ``param_count`` (asserted equal to the
-    parameters drawn) beside it."""
+    parameters drawn) beside it. ``after(state, batches, opt)`` runs last,
+    on the trained state."""
     from repro_torch import optim
     from repro_torch import tree as T
     from repro_torch.core import algorithms, spmd
@@ -1758,6 +2001,8 @@ def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formul
           "model_flops_per_iter": model_flops_estimate(cfg, shape),
           "formula": "roofline.analysis.model_flops_estimate: 6 * active params * global_batch"
                      " * seq_len", "smoke_flops_per_iter": flops})
+    if after is not None:
+        after(state, batches, opt)
     del state, batches
     release(torch)
 
@@ -3152,12 +3397,15 @@ def main() -> int:
     k9_row.update(vlm_audio_phase(torch, mem_rate, all_ops, path_counts))
     k9_row["launches_serve_whisper"] = path_counts["serve_whisper"]["flash_attention"]
     k9_row["launches_serve_llava"] = path_counts["serve_llava"]["flash_attention"]
+    k9_row["launches_serve_parallel"] = path_counts["serve_parallel"]["flash_attention"]
+    # 11 · the dry run's roofline against the measured cells
+    roofline_phase(torch)
     k9_row["launches_families_reference"] = {
         p[len("families_reference_"):]: c["flash_attention"] for p, c in path_counts.items()
         if p.startswith("families_reference_")}
     k8_row["launches"] = sum(c["interaction"] for c in path_counts.values())  # no path runs K8
 
-    # 11 · the kernel table, the card, the result
+    # 12 · the kernel table, the card, the result
     main_path_of = {"replica_mean": "sim_ma", "ma_update": "sim_ma",
                     "replica_mean_rows": "elastic_ma", "ma_update_rows": "elastic_ma",
                     "bmuf_update": "sim_bmuf", "bmuf_update_rows": "elastic_bmuf",
@@ -3171,6 +3419,8 @@ def main() -> int:
     for k, row in rows.items():  # the LM trainers' full-width windows: none
         op = k if k in all_ops else k.rsplit("_", 2)[0]
         row["launches_lm_train"] = path_counts["lm_train"][op]
+        row["launches_lm_train_save_comm"] = path_counts["lm_train_save_comm"][op]
+        row["launches_lm_train_parallel"] = path_counts["lm_train_parallel"][op]
         row["launches_lm_train_mamba2"] = path_counts["lm_train_mamba2"][op]
         row["launches_lm_train_whisper"] = path_counts["lm_train_whisper"][op]
         row["launches_serve_mamba2"] = path_counts["serve_mamba2"][op]

@@ -21,9 +21,11 @@ Every family trains and serves here: the dense, moe, ssm, hybrid and vlm
 ones through ``models/transformer.py``, the audio one (whisper) through
 ``models/whisper.py``. Trees may mix dtypes (mamba2's f32 ``A_log``,
 ``dt_bias`` and ``D`` and the MoE router beside bf16 weights), which every
-update and sync keeps leaf by leaf. The reference's mesh (its
-``spmd_axis_name``, the syncdp all-reduce) is not ported: one process, one
-device (ROADMAP queue 1, 'sharding, dry run, mesh and roofline').
+update and sync keeps leaf by leaf. The port runs one process on one
+device: the reference's mesh (its ``spmd_axis_name``, the syncdp
+all-reduce) becomes placement data, ``sharding/rules.py``'s specs beside the
+structures of ``launch/specs.py``, and ``launch/dryrun.py`` traces these
+steps on them and counts what they execute.
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ Tree = Any
 
 def _loss_fn(cfg: ArchConfig, remat_policy: str = "full") -> Callable:
     """The training loss: whisper's with no unit remat (as the reference's),
-    every other family's with full remat."""
+    every other family's with its units rematerialised under
+    ``remat_policy`` ("full" or "save_comm")."""
     transformer.check_remat_policy(remat_policy)
     if cfg.family == "audio":
         return lambda p, b: whisper.loss_fn(p, cfg, b)
@@ -104,8 +107,8 @@ def make_train_step(
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     loss), updating ``params`` and ``opt_state`` in place. ``"shadow"``:
     leaves carry a leading replica dim and ``loss`` is (R,); ``"syncdp"``:
-    one model, a scalar ``loss``. The loss runs the training form with full
-    remat, as the reference's does."""
+    one model, a scalar ``loss``. The loss runs the training form with its
+    units rematerialised under ``remat_policy``, as the reference's does."""
     if mode not in ("shadow", "syncdp"):
         raise ValueError(f"unknown mode {mode!r}; expected 'shadow' or 'syncdp'")
     loss_fn = _loss_fn(cfg, remat_policy)

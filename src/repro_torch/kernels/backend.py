@@ -154,6 +154,38 @@ def count_launch(op) -> None:
         op.launches += 1
 
 
+_TRACE = threading.local()  # a dry run's trace, per thread (``tracing``)
+
+
+class tracing:
+    """The work of the kernels that wrappers stand for on ``meta`` tensors
+    while a dry run traces a step (``launch/dryrun.py``): the meta twins
+    stand for the card, so where the card would launch a kernel, its
+    wrapper returns the output's shape and reports the kernel's work here
+    (``trace_work``). ``work`` is {kernel: [calls, flops, bytes]}."""
+
+    def __enter__(self):
+        self.prev = getattr(_TRACE, "work", None)
+        _TRACE.work = self.work = {}
+        return self
+
+    def __exit__(self, *exc):
+        _TRACE.work = self.prev
+        return False
+
+
+def trace_work(name: str, flops: int, nbytes: int) -> None:
+    """Count one kernel's work in the active ``tracing``. A wrapper given a
+    meta tensor outside a trace has nothing to run, so this raises there."""
+    work = getattr(_TRACE, "work", None)
+    if work is None:
+        raise RuntimeError(f"{name}: a meta tensor outside a dry run's trace (backend.tracing)")
+    calls = work.setdefault(name, [0, 0, 0])
+    calls[0] += 1
+    calls[1] += flops
+    calls[2] += nbytes
+
+
 def check_launch(symbol: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA launch failed with cudaError {err}")

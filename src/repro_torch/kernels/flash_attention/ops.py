@@ -9,6 +9,10 @@ JAX package's: its ``flash_attention`` defines no VJP), and its ``ctypes``
 launch returns a tensor outside autograd, so a CUDA input that needs a
 gradient is refused rather than given none; training takes the plain
 query-chunked attention (``models/layers.py::attention_apply(train=True)``).
+A ``meta`` tensor is a dry run's stand-in for the card
+(``launch/dryrun.py``): the call gives the output's shape and reports the
+kernel's work to the trace (``backend.tracing``) instead of the plain
+version's, which the card never runs.
 """
 from __future__ import annotations
 
@@ -31,7 +35,19 @@ def gqa_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = gqa_flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
         backend.count_launch(gqa_attention_op)
         return out
+    if q.is_meta:
+        backend.trace_work("flash_attention", *_kernel_work(q, k, causal))
+        return torch.empty_like(q)
     return gqa_attention_ref(q, k, v, causal=causal)
+
+
+def _kernel_work(q: torch.Tensor, k: torch.Tensor, causal: bool):
+    """(FLOPs, bytes) of one launch: the scores and the products over the
+    (causal) query-key pairs, q, k and v read once, the output written
+    once."""
+    B, S, H, d = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4 * d * B * H * pairs, (2 * q.numel() + 2 * k.numel()) * q.element_size()
 
 
 gqa_attention_op.launches = 0  # kernel launches since the last reset

@@ -1,0 +1,465 @@
+"""The one-card dry run: trace every (arch x input shape) step at full width
+on fake tensors, count what it executes, and set the counts against the
+H100's data-sheet roofline (the counterpart of ``repro/launch/dryrun.py``).
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-20b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/dryrun_torch.json
+
+The reference lowers and compiles each program on 256 or 512 forced host
+devices and reads XLA's ``cost_analysis`` and ``memory_analysis`` of the
+partitioned program. The port runs one process on one card: it has no
+partitioner, no HLO and no collective. So this dry run traces the port's
+own step once (``_trace_cost``) on the fake structures of
+``launch/specs.py`` (``FakeTensorMode``: shapes, no storage, so kimi-k2's
+1.04 T parameters trace without a byte of weights) and counts:
+
+- FLOPs: the products' (``FlopCounterMode``: matmuls, ``bmm``, einsum's
+  products; no elementwise op);
+- bytes: each operation's input and output bytes (``_ByteCounter``). A
+  view, reshape, detach or other metadata op counts 0, an in-place op its
+  operands once, a broadcast input its distinct elements. Eager PyTorch
+  fuses nothing, so this is the traffic the card really moves, up to what
+  its caches catch;
+- peak bytes: the most storage the step's own allocations held live at
+  once; the arguments' and the new outputs' bytes beside it.
+
+The trace never touches a device: it runs on ``meta`` twins of the fake
+structures, as the reference's dry run lowers on forced host devices. The
+meta twins stand for the card, so the trace counts the program the card
+runs. Where the card launches K9 (every unwindowed self-attention of a
+prefill), the wrapper counts K9's work (``backend.tracing``): the causal
+pairs' products, q, k and v read once and the output written once. The
+plain version's f32 S x S score passes, which the reference's prefill
+runs and XLA fuses, would be counted in full and never run on the card:
+counted so, llava-next-34b's prefill of 4 x 3,136 positions got a
+1,725 ms bound, above the 1,602 ms it takes on an H100 80GB HBM3 (700 W).
+The training form's attention is plain on the card too,
+and is counted as such, with every rematerialised forward the backward
+pass runs. A Python loop runs every layer, so a trace counts the whole
+depth (XLA counts a scan body once, which is why the reference fits its
+costs over depth); a full-depth training trace of the largest archs takes
+minutes, though, so ``run_one`` fits a training step's counts over depth
+from two shallow traces (``extrapolate_cost``); prefill and decode are
+traced in full.
+
+The row is the reference's for one chip (``chips=1``, mesh "1") plus
+``peak_bytes``, ``fits_one_card`` (arguments + peak within 80 GB) and
+``placed_param_bytes``: one copy of the parameters as a chip of the
+reference's 16 x 16 mesh would hold it under ``sharding/rules.py``, the
+one number ``--no-fsdp`` changes.
+``--multi-pod`` and ``--both-meshes`` exit with a message: the port runs one
+card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+import traceback
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch import optim
+from repro_torch import tree as T
+from repro_torch.configs.base import ARCH_IDS, INPUT_SHAPES, get_config
+from repro_torch.core import spmd
+from repro_torch.core.sync import SyncConfig
+from repro_torch.kernels import backend
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.roofline import analysis as RA
+
+# Archs whose serve step at 500k context is sub-quadratic (DESIGN.md §4).
+LONG_CONTEXT_OK = {"mamba2-780m", "jamba-1.5-large-398b", "phi3-medium-14b"}
+ONE_CARD = Mesh(("data", "model"), (1, 1))  # the card the port computes on
+PLACEMENT = make_production_mesh()  # the reference's single pod, (data 16, model 16)
+ONE_CARD_ONLY = ("the port runs on one card: it has no multi-pod or production mesh to lower "
+                 "on (the placements are launch/specs.py's data); drop --multi-pod and "
+                 "--both-meshes")
+
+aten = torch.ops.aten
+# ops that allocate or relabel storage without moving data
+_NO_DATA_OPS = {aten.detach.default, aten.alias.default, aten._unsafe_view.default,
+                aten.lift_fresh.default, aten.empty.memory_format, aten.empty_strided.default,
+                aten.empty_like.default, aten.new_empty.default, aten.new_empty_strided.default,
+                aten.sym_size.int, aten.sym_stride.int, aten.sym_numel.default,
+                aten.sym_storage_offset.default, aten.is_same_size.default}
+
+
+def resolve_config(arch: str, shape_name: str):
+    if arch == "phi3-medium-14b" and shape_name == "long_500k":
+        from repro_torch.configs.phi3_medium_14b import CONFIG_SWA
+
+        return CONFIG_SWA  # sliding-window variant (DESIGN.md §4)
+    return get_config(arch)
+
+
+def should_skip(arch: str, shape_name: str) -> Optional[str]:
+    if shape_name == "long_500k" and arch not in LONG_CONTEXT_OK:
+        return "full-attention arch: 500k dense KV decode is quadratic-cost (skip per DESIGN.md)"
+    return None
+
+
+class Program(NamedTuple):
+    """A step, its fake arguments and their specs."""
+
+    step: Callable
+    args: tuple
+    specs: tuple
+
+
+def build(cfg, shape_name: str, mesh, *, mode: str = "syncdp", optimizer: str = "adagrad",
+          n_replicas: int = 2, n_microbatches: int = 8, shape_override=None, fsdp: bool = True,
+          grad_dtype: str = "float32", remat_policy: str = "full") -> Program:
+    """The step of ``shape_name``'s kind (train, prefill or decode) for
+    ``cfg``, on fake structures. ``fsdp``, ``grad_dtype``,
+    ``n_microbatches`` and ``remat_policy`` are the reference's §Perf
+    knobs; ``fsdp`` moves only the specs."""
+    shape = shape_override or INPUT_SHAPES[shape_name]
+    fake = FakeTensorMode()
+    if shape.kind == "train":
+        opt = optim.make(optimizer, 1e-3)
+        params = SP.param_structs(cfg, mesh, mode=mode, n_replicas=n_replicas, fsdp=fsdp,
+                                  fake=fake)
+        opt_state = SP.opt_structs(opt, params[0], mesh, fsdp=fsdp, fake=fake,
+                                   replica_axis="pod" if mode == "shadow" else None)
+        batch = SP.train_batch_structs(cfg, shape, mesh, mode=mode, n_replicas=n_replicas,
+                                       fake=fake)
+        step = spmd.make_train_step(cfg, opt, mode, n_microbatches=n_microbatches,
+                                    grad_dtype=grad_dtype, remat_policy=remat_policy)
+        parts = (params, opt_state, batch)
+    elif shape.kind == "prefill":
+        parts = (SP.param_structs(cfg, mesh, mode="syncdp", fsdp=fsdp, fake=fake),
+                 SP.train_batch_structs(cfg, shape, mesh, mode="syncdp", fake=fake))
+        step = spmd.make_prefill_step(cfg, shape.seq_len)
+    else:
+        params = SP.param_structs(cfg, mesh, mode="syncdp", fsdp=fsdp, fake=fake)
+        cache = SP.cache_structs(cfg, shape.global_batch, shape.seq_len, mesh, fake=fake)
+        db = SP.decode_batch_structs(cfg, shape, mesh, fake=fake)
+        parts = (params, cache, (db[0]["token"], db[1]["token"]), (db[0]["pos"], db[1]["pos"]))
+        step = spmd.make_decode_step(cfg)
+    return Program(step, tuple(p[0] for p in parts), tuple(p[1] for p in parts))
+
+
+def build_sync_step(arch: str, mesh, *, algo: str = "easgd", n_replicas: int = 2,
+                    cfg=None) -> Program:
+    """The background program (ShadowSync's own): ``sync_step(params_stack,
+    algo_state)``, uniform across the algorithm registry. ``cfg`` overrides
+    ``arch``'s config (a cut depth)."""
+    cfg = cfg or get_config(arch)
+    sync_cfg = SyncConfig(algo=algo).validate()
+    fake = FakeTensorMode()
+    params = SP.param_structs(cfg, mesh, mode="shadow", n_replicas=n_replicas, fake=fake)
+    single = SP.param_structs(cfg, mesh, mode="syncdp", fake=fake)
+    state = SP.sync_state_structs(sync_cfg, single[0], mesh, fake=fake)
+    return Program(spmd.make_sync_step(cfg, sync_cfg), (params[0], state[0]),
+                   (params[1], state[1]))
+
+
+def placed_param_bytes(cfg, *, fsdp: bool = True, mesh: Mesh = PLACEMENT) -> int:
+    """The bytes of one copy of ``cfg``'s parameters that each chip of
+    ``mesh`` would hold under ``sharding/rules.py``'s specs, with the FSDP
+    axis or without (``--no-fsdp``). The port holds every byte on its one
+    card; the row reports this beside it as what the reference's placement
+    gives a chip."""
+    structs, specs = SP.param_structs(cfg, mesh, fsdp=fsdp)
+
+    def shard(t, spec):
+        n = t.numel()
+        for ax in spec:
+            for a in (ax if isinstance(ax, tuple) else (ax,) if ax else ()):
+                n //= mesh.shape[a]  # the rules place an axis only where it divides
+        return n * t.element_size()
+
+    return sum(T.leaves(T.map(shard, structs, specs)))
+
+
+def _tensors(tree) -> list:
+    return [t for t in T.leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _distinct_bytes(t: torch.Tensor) -> int:
+    """The bytes of the elements ``t`` addresses: a broadcast (stride 0)
+    dim counts once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def _key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+class _ByteCounter(TorchDispatchMode):
+    """Counts each op's bytes moved, and the live storages the ops allocate.
+
+    A storage is live while anything but this counter holds it: the
+    counter keeps a reference to every storage it saw made and reads the
+    use count (``torch._C._storage_Use_Count``); a storage only it holds is
+    dead. ``cur`` may count dead storages until the next sweep, which runs
+    whenever it would raise the peak, so the peak is exact."""
+
+    def __init__(self, arg_keys):
+        super().__init__()
+        self.arg_keys = set(arg_keys)
+        self.bytes = 0
+        self.n_ops = 0
+        self.held: Dict[int, tuple] = {}
+        self.cur = 0
+        self.peak = 0
+
+    def _sweep(self):
+        for k in [k for k in self.held if torch._C._storage_Use_Count(k) <= 1]:
+            self.cur -= self.held.pop(k)[1]
+
+    def _track(self, t: torch.Tensor):
+        k = _key(t)
+        if k in self.held or k in self.arg_keys:
+            return
+        st = t.untyped_storage()
+        self.held[k] = (st, st.nbytes())
+        self.cur += st.nbytes()
+        if self.cur > self.peak:
+            self._sweep()
+            self.peak = max(self.peak, self.cur)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func.namespace == "prim":  # metadata queries (prim.device)
+            return out
+        self.n_ops += 1
+        outs = _tensors(out)
+        if not (func.is_view or func in _NO_DATA_OPS):
+            seen, ins = set(), []
+            for t in _tensors((args, kwargs)):
+                if id(t) not in seen:
+                    seen.add(id(t))
+                    ins.append(t)
+            moved = sum(_distinct_bytes(t) for t in ins)
+            in_keys = {_key(t) for t in ins}
+            # an in-place (or out=) op's result is an operand, counted once
+            moved += sum(_distinct_bytes(t) for t in outs if _key(t) not in in_keys)
+            self.bytes += moved
+        for t in outs:
+            self._track(t)
+        return out
+
+
+def _meta_twin(tree):
+    """Each tensor of ``tree`` as a ``meta`` tensor of the same shape,
+    strides and dtype (other leaves as they are)."""
+    return T.map(lambda x: torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device="meta")
+                 if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _storage_bytes(tensors, skip=()) -> Dict[int, int]:
+    out = {}
+    for t in tensors:
+        if _key(t) not in skip:
+            out.setdefault(_key(t), t.untyped_storage().nbytes())
+    return out
+
+
+def _trace_cost(program: Program) -> RA.TraceCost:
+    """Run ``program.step`` once under ``FlopCounterMode``,
+    ``_ByteCounter`` and ``backend.tracing``, on ``meta`` twins of its fake
+    arguments: the same shapes, strides and dtypes. Nothing is allocated.
+    On meta tensors the ops run their meta kernels directly (the fake
+    mode's own dispatch would take twice the rest of a trace), and autograd
+    makes the copies it makes on real tensors (an in-place op on a view
+    gets a ``new_zeros`` and a ``copy_`` in the backward pass, which a fake
+    trace skips): ``tests/test_torch_dryrun.py`` holds the counts to a run
+    on real tensors."""
+    args = _meta_twin(program.args)
+    arg_store = _storage_bytes(_tensors(args))
+    counter = _ByteCounter(arg_store)
+    flops = FlopCounterMode(display=False)
+    with backend.tracing() as kernels, flops, counter:
+        out = program.step(*args)
+    out_store = _storage_bytes(_tensors(out), skip=arg_store)
+    counter._sweep()
+    work = [sum(w[i] for w in kernels.work.values()) for i in range(3)]
+    return RA.TraceCost(flops=float(flops.get_total_flops() + work[1]),
+                        bytes_accessed=float(counter.bytes + work[2]),
+                        arg_bytes=sum(arg_store.values()), out_bytes=sum(out_store.values()),
+                        peak_bytes=counter.peak, n_ops=counter.n_ops, kernel_calls=work[0])
+
+
+def _depth_variant(cfg, n_units: int):
+    """The same arch with ``n_units`` repeats of its unit (and as many
+    encoder layers)."""
+    upd = {"n_layers": len(cfg.layer_pattern) * n_units}
+    if cfg.encoder is not None:
+        upd["encoder"] = dataclasses.replace(cfg.encoder, n_layers=n_units)
+    return dataclasses.replace(cfg, **upd)
+
+
+FIT_UNITS = (2, 3)  # the depth fit's probes, in units
+
+
+def extrapolate_cost(cfg, shape_name: str, mesh, **build_kw) -> RA.TraceCost:
+    """The full-depth counts of ``build(cfg, ...)`` fitted from two shallow
+    traces, cost = a + b * units, with probes at 2 and 3 units. A Python
+    loop traces every layer, but a full-depth training trace of the
+    largest archs takes minutes (granite-20b at train_4k, 52 layers x 8
+    microbatches: 197 s on 8 CPU cores under the fake mode, about a third
+    of it on meta twins; jamba's 72 layers longer). FLOPs, bytes, ops and
+    the outputs grow by the same amount with each unit, so their fit is
+    exact (``tests/test_torch_dryrun.py``). The peak is the largest of
+    the step's phases, each linear in depth; the fit is exact while one
+    phase holds it at both probes and at full depth, as the activations
+    and gradients do at the reference's training shapes (held there by a
+    test), but where they are small a phase of the optimizer's update can
+    take over between the probes and full depth; a largest of linear
+    terms is convex, so the fit is then below the true peak, never above.
+    The arguments' bytes
+    come from the full-depth structures, built without a trace."""
+    repeats = cfg.n_layers // len(cfg.layer_pattern)
+    full = build(cfg, shape_name, mesh, **build_kw)
+    if repeats <= FIT_UNITS[-1]:
+        return _trace_cost(full)
+    lo, hi = (_trace_cost(build(_depth_variant(cfg, n), shape_name, mesh, **build_kw))
+              for n in FIT_UNITS)
+    span = FIT_UNITS[1] - FIT_UNITS[0]
+
+    def fit(a, b):
+        return a + (b - a) * (repeats - FIT_UNITS[0]) // span
+
+    return RA.TraceCost(
+        flops=float(fit(int(lo.flops), int(hi.flops))),
+        bytes_accessed=float(fit(int(lo.bytes_accessed), int(hi.bytes_accessed))),
+        arg_bytes=sum(_storage_bytes(_tensors(full.args)).values()),
+        out_bytes=fit(lo.out_bytes, hi.out_bytes), peak_bytes=fit(lo.peak_bytes, hi.peak_bytes),
+        n_ops=fit(lo.n_ops, hi.n_ops), kernel_calls=fit(lo.kernel_calls, hi.kernel_calls))
+
+
+def run_one(arch: str, shape_name: str, *, multi_pod: bool = False, mode: str = "syncdp",
+            optimizer: str = "adagrad", verbose: bool = True, sync_algo: Optional[str] = None,
+            fsdp: bool = True, grad_dtype: str = "float32", n_microbatches: int = 8,
+            capacity_factor: Optional[float] = None, parallel_block: bool = False,
+            remat_policy: str = "full") -> Dict[str, Any]:
+    """One (arch x shape) row: ``status`` ok (the roofline's row), skipped
+    (the reference's skips) or fail (the error)."""
+    if multi_pod:
+        raise ValueError(ONE_CARD_ONLY)
+    mesh_name = "1"
+    skip = should_skip(arch, shape_name)
+    tag = f"{arch} x {shape_name} x {mesh_name} [{sync_algo or mode}]"
+    if skip:
+        if verbose:
+            print(f"SKIP  {tag}: {skip}")
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_name, "mode": mode,
+                "status": "skipped", "reason": skip}
+    t0 = time.time()
+    try:
+        cfg = resolve_config(arch, shape_name)
+        if capacity_factor is not None and cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=capacity_factor))
+        if parallel_block:
+            cfg = dataclasses.replace(cfg, parallel_block=True)
+        kw = dict(mode=mode, optimizer=optimizer, fsdp=fsdp, grad_dtype=grad_dtype,
+                  n_microbatches=n_microbatches, remat_policy=remat_policy)
+        fitted = not sync_algo and INPUT_SHAPES[shape_name].kind == "train" \
+            and cfg.n_layers // len(cfg.layer_pattern) > FIT_UNITS[-1]
+        if sync_algo:
+            cost = _trace_cost(build_sync_step(arch, ONE_CARD, algo=sync_algo, cfg=cfg))
+        elif fitted:
+            cost = extrapolate_cost(cfg, shape_name, ONE_CARD, **kw)
+        else:
+            cost = _trace_cost(build(cfg, shape_name, ONE_CARD, **kw))
+        mf = RA.model_flops_estimate(cfg, INPUT_SHAPES[shape_name]) if not sync_algo else 0.0
+        how = (f"depth-fitted from {FIT_UNITS[0]}- and {FIT_UNITS[1]}-unit traces" if fitted
+               else "traced at full depth")
+        r = RA.analyze(cost, arch=arch, shape=shape_name, mesh_name=mesh_name,
+                       mode=f"sync:{sync_algo}" if sync_algo else mode, chips=1,
+                       model_flops=mf, notes=f"{cost.n_ops} ops {how}")
+        row = r.row()
+        row.update(status="ok", trace_s=round(time.time() - t0, 1))
+        row["placed_param_bytes"] = placed = placed_param_bytes(cfg, fsdp=fsdp)
+        if verbose:
+            gib = 2 ** 30
+            print(f"OK    {tag}  trace={row['trace_s']}s")
+            print(f"      mem/card: args={r.arg_bytes / gib:.2f}GiB "
+                  f"temp={r.temp_bytes / gib:.2f}GiB "
+                  f"out={r.out_bytes / gib:.2f}GiB peak={r.peak_bytes / gib:.2f}GiB "
+                  f"fits_one_card={r.fits_one_card}")
+            print(f"      params placed on the reference's 16x16 mesh "
+                  f"({'fsdp' if fsdp else 'no fsdp'}): {placed / gib:.2f}GiB/chip")
+            print(f"      roofline: t_comp={r.t_compute * 1e3:.2f}ms "
+                  f"t_mem={r.t_memory * 1e3:.2f}ms t_coll={r.t_collective * 1e3:.2f}ms "
+                  f"-> {r.bottleneck}-bound; useful_flops={r.useful_flops_ratio:.2f}")
+            print(f"      collectives: {{}} ({RA.ONE_CARD_NOTE})")
+        return row
+    except Exception as e:
+        if verbose:
+            print(f"FAIL  {tag}: {type(e).__name__}: {e}")
+            traceback.print_exc()
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_name, "mode": mode,
+                "status": "fail", "error": f"{type(e).__name__}: {e}"}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ARCH_IDS), default=None)
+    ap.add_argument("--shape", choices=list(INPUT_SHAPES), default=None)
+    ap.add_argument("--multi-pod", action="store_true", help="refused: the port runs one card")
+    ap.add_argument("--both-meshes", action="store_true", help="refused: the port runs one card")
+    ap.add_argument("--mode", choices=["syncdp", "shadow"], default="syncdp")
+    ap.add_argument("--sync-algo", choices=["easgd", "ma", "bmuf"], default=None,
+                    help="trace the background sync_step instead of train/serve")
+    ap.add_argument("--optimizer", default="adagrad")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=None)
+    # the reference's §Perf knobs
+    ap.add_argument("--no-fsdp", action="store_true")
+    ap.add_argument("--grad-dtype", choices=["float32", "bfloat16"], default="float32")
+    ap.add_argument("--microbatches", type=int, default=8)
+    ap.add_argument("--capacity-factor", type=float, default=None)
+    ap.add_argument("--parallel-block", action="store_true")
+    ap.add_argument("--remat-policy", choices=["full", "save_comm"], default="full")
+    args = ap.parse_args(argv)
+    if args.multi_pod or args.both_meshes:
+        ap.exit(2, f"dryrun: {ONE_CARD_ONLY}\n")
+
+    rows = []
+    archs = [args.arch] if args.arch else list(ARCH_IDS)
+    shapes = [args.shape] if args.shape else list(INPUT_SHAPES)
+
+    def write():
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1, default=str)
+
+    for arch in archs:
+        for shape in shapes:
+            rows.append(run_one(arch, shape, mode=args.mode, optimizer=args.optimizer,
+                                sync_algo=args.sync_algo, fsdp=not args.no_fsdp,
+                                grad_dtype=args.grad_dtype, n_microbatches=args.microbatches,
+                                capacity_factor=args.capacity_factor,
+                                parallel_block=args.parallel_block,
+                                remat_policy=args.remat_policy))
+            if args.out:  # incremental: survives an interruption
+                write()
+    if args.out:
+        write()
+        print(f"wrote {len(rows)} rows to {args.out}")
+    n_ok = sum(r.get("status") == "ok" for r in rows)
+    n_skip = sum(r.get("status") == "skipped" for r in rows)
+    n_fail = sum(r.get("status") == "fail" for r in rows)
+    print(f"\nSummary: {n_ok} ok, {n_skip} skipped, {n_fail} failed / {len(rows)}")
+    return 1 if n_fail else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -143,7 +143,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
     dev = backend.resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else reduced(get_config(args.arch))
-    transformer.check_ported(cfg)
     # at full width the weights are drawn where they live, leaf by leaf
     gen = torch.Generator(device=dev if args.full else "cpu").manual_seed(args.seed)
     if dev.type == "cuda":

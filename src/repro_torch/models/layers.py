@@ -16,19 +16,22 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.kernels.flash_attention.ops import gqa_attention_op
 
 Params = dict
 
 
-def remat(fn: Callable, *args):
+def remat(fn: Callable, *args, context_fn: Optional[Callable] = None):
     """``fn(*args)`` with its activations recomputed in the backward pass
     instead of saved (the reference's ``jax.checkpoint``). Non-re-entrant,
     so tensors ``fn`` closes over get their gradients and views stay views;
-    the blocks draw no random numbers, so no RNG state is kept."""
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    the blocks draw no random numbers, so no RNG state is kept.
+    ``context_fn`` (a selective checkpoint's contexts) keeps what its
+    policy names."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=context_fn or noop_context_fn)
 
 
 def promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:

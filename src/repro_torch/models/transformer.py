@@ -12,12 +12,16 @@ FFN is MoE where ``cfg.is_moe_layer`` holds of its **unit position**, as in
 the reference (``repro/models/transformer.py:70, 136, 331, 340``), and the
 MoE layers' load-balance losses are summed into ``aux``.
 
-The vision frontend (vlm), the audio family and the ``parallel_block``
-variant raise ``NotImplementedError`` naming their ROADMAP queue-1 item by
-its subject.
+Two variants of the reference's §Perf work compute here too. With
+``cfg.parallel_block`` an attention layer with an FFN is PaLM's block: one
+shared pre-norm, the attention and the FFN added together (``forward``,
+``loss_fn``, ``prefill``, ``decode_step``). ``remat_policy="save_comm"``
+keeps each unit's attention and FFN outputs through the backward pass and
+recomputes the rest (``save_comm_contexts``).
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -44,14 +48,6 @@ from repro_torch.models.layers import (
     swiglu_init,
 )
 from repro_torch.models.moe import moe_apply, moe_init
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Refuse what the port does not compute yet, before any weight is drawn."""
-    if cfg.parallel_block:
-        raise NotImplementedError(f"{cfg.name}: parallel_block (a dry-run variant) is not yet "
-                                  "ported (ROADMAP queue 1, 'sharding, dry run, mesh and "
-                                  "roofline')")
 
 
 def _unit_info(cfg: ArchConfig) -> Tuple[int, int]:
@@ -121,7 +117,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device=None, dtype=None) 
     frontend adds ``projector.w`` (d_model, d_model), drawn after the head
     from the same generator (the reference draws it on its ``lm_head``'s
     key)."""
-    check_ported(cfg)
     dtype = dtype or dtype_of(cfg.dtype)
     device = torch.device(device) if device is not None else gen.device
 
@@ -155,16 +150,93 @@ def _rope(cfg: ArchConfig, positions: torch.Tensor):
         if cfg.rope_theta > 0 else None
 
 
+REMAT_POLICIES = ("full", "save_comm")
+
+
 def check_remat_policy(policy: str) -> None:
-    """``"full"`` recomputes a whole unit. The reference's ``"save_comm"``
-    keeps the activations that follow a tensor-parallel collective; the
-    port shards nothing yet, so it is refused."""
-    if policy == "save_comm":
-        raise NotImplementedError(
-            "remat_policy='save_comm' keeps post-collective activations; the port has no "
-            "sharding yet (ROADMAP queue 1, 'sharding, dry run, mesh and roofline')")
-    if policy != "full":
-        raise ValueError(f"unknown remat policy {policy!r}; expected 'full' or 'save_comm'")
+    """``"full"`` recomputes a whole unit; ``"save_comm"`` keeps each
+    unit's attention and FFN outputs (``save_comm_contexts``)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; expected one of {REMAT_POLICIES}")
+
+
+def _parallel(cfg: ArchConfig, kind: str, lp: Params) -> bool:
+    """PaLM's block for an attention layer with an FFN (the reference's test)."""
+    return cfg.parallel_block and kind == "A" and "ffn" in lp
+
+
+# "save_comm"'s two named outputs, as the reference names them with
+# ``checkpoint_name`` (``repro/models/transformer.py:145-150, 247-251``):
+# "attn_out" the mixer's output (attention or mamba2), "ffn_out" the FFN's,
+# and for a parallel layer "attn_out" the sum of both branches.
+#
+# A selective-checkpoint policy sees aten ops, not names, so each named
+# output is told apart by the op that produces it. The mixer's and the FFN's
+# are the products with their output weights (``wo``, ``out_proj``,
+# ``w_down``; an MoE layer's expert ``bmm`` and its shared expert's product
+# both read a ``w_down``): the policy keeps an ``mm``/``bmm`` whose operand
+# *is* one of the unit's output weights, tensor identity, which costs
+# nothing. A parallel layer's sum reads no weight, so ``_named_sum`` raises
+# a thread-local flag for the one ``add`` it runs. (An identity op made
+# with ``torch.library.custom_op`` would name any tensor, but it may not
+# return an alias of its input and so costs a copy of each.) For an MoE
+# layer the kept tensor is the expert products' (E, capacity, d) output,
+# from which the un-route (a gather, the gates' product, a permutation and
+# the sum over k) is recomputed, not the (B, S, d) sum the reference keeps.
+_NAMED = threading.local()
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _named_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b``, the one op a "save_comm" policy keeps of a parallel layer."""
+    _NAMED.on = True
+    try:
+        return a + b
+    finally:
+        _NAMED.on = False
+
+
+def _output_weights(cfg: ArchConfig, unit_layers) -> list:
+    """The weights whose products give a unit's named outputs: every
+    sequential layer's ``wo`` or ``out_proj`` and its FFN's ``w_down``."""
+    kinds = cfg.layer_kinds()
+    out = []
+    for pos, lp in enumerate(unit_layers):
+        if _parallel(cfg, kinds[pos], lp):
+            continue
+        out.append(lp["mixer"]["wo" if kinds[pos] == "A" else "out_proj"])
+        ffn = lp.get("ffn", {})
+        out += [f["w_down"] for f in (ffn, ffn.get("shared", {})) if "w_down" in f]
+    return out
+
+
+def save_comm_contexts(weights) -> Tuple[Any, Any]:
+    """The selective checkpoint's (forward, recompute) contexts for one unit
+    under ``remat_policy="save_comm"``: its named outputs (above) are
+    ``MUST_SAVE``, every other op ``PREFER_RECOMPUTE``. Built anew for each
+    unit, as ``torch.utils.checkpoint`` asks.
+
+    The reference keeps these outputs so that its backward pass does not
+    replay the tensor-parallel all-reduce that follows each of them. On one
+    card there is no collective: the variant changes what is stored (two
+    activations a layer more) and which products the recompute skips, never
+    a value; the gradients are those of full remat. The non-reentrant
+    recompute stops once it has made the last tensor the backward pass
+    needs, so it never reaches a unit's last output (its last layer's FFN
+    output, or that layer's sum where it is a parallel one) under either
+    policy: keeping that one costs its memory and skips nothing, while
+    keeping a mixer's output skips its ``wo`` or ``out_proj`` product."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    ids = {id(w) for w in weights}
+
+    def policy(ctx, op, *args, **kwargs):
+        if getattr(_NAMED, "on", False) or (
+                op in _PRODUCTS and any(id(a) in ids for a in args)):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 def _ffn(lp: Params, h: torch.Tensor, cfg: ArchConfig, pos: int):
@@ -174,6 +246,26 @@ def _ffn(lp: Params, h: torch.Tensor, cfg: ArchConfig, pos: int):
     return swiglu(lp["ffn"], h), None
 
 
+def _mixer_full(lp: Params, h, cfg: ArchConfig, kind: str, positions, rope, cache, train):
+    """The layer's mixer on its normed input ``h``, full sequence; with
+    ``cache`` writes the layer's prefill state in place."""
+    if kind == "A" and cache is None:
+        return attention_apply(lp["mixer"], h, cfg, positions=positions, rope=rope, train=train)
+    if kind == "A":
+        mixed, k, v = attention_apply(lp["mixer"], h, cfg, positions=positions, rope=rope,
+                                      return_kv=True)
+        S = h.shape[1]
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        return mixed
+    if cache is None:
+        return mamba2.mamba2_apply(lp["mixer"], h, cfg)
+    mixed, ssm, conv = mamba2.mamba2_apply(lp["mixer"], h, cfg, return_state=True)
+    cache["ssm"].copy_(ssm)
+    cache["conv"].copy_(conv)
+    return mixed
+
+
 def _apply_layer_full(lp: Params, x, cfg: ArchConfig, kind: str, pos: int, positions, rope,
                       cache=None, train: bool = False):
     """One block at unit position ``pos``, full sequence. Returns (x, aux),
@@ -181,23 +273,15 @@ def _apply_layer_full(lp: Params, x, cfg: ArchConfig, kind: str, pos: int, posit
     of the stacked cache) writes its prefill state in place: an attention
     layer's roped k and v into the first S positions, a mamba2 layer's
     final SSD state and pre-conv tail. ``train`` picks the training form of
-    attention."""
+    attention. A parallel layer (``_parallel``) returns ``x + (mixed + y)``
+    with both branches on the one pre-norm, the reference's order
+    (``repro/models/transformer.py:173``); its ``norm2`` is read by
+    nothing."""
     h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    if kind == "A" and cache is None:
-        mixed = attention_apply(lp["mixer"], h, cfg, positions=positions, rope=rope,
-                                train=train)
-    elif kind == "A":
-        mixed, k, v = attention_apply(lp["mixer"], h, cfg, positions=positions, rope=rope,
-                                      return_kv=True)
-        S = x.shape[1]
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
-    elif cache is None:
-        mixed = mamba2.mamba2_apply(lp["mixer"], h, cfg)
-    else:
-        mixed, ssm, conv = mamba2.mamba2_apply(lp["mixer"], h, cfg, return_state=True)
-        cache["ssm"].copy_(ssm)
-        cache["conv"].copy_(conv)
+    mixed = _mixer_full(lp, h, cfg, kind, positions, rope, cache, train)
+    if _parallel(cfg, kind, lp):
+        y, aux = _ffn(lp, h, cfg, pos)
+        return x + _named_sum(mixed, y), aux
     x = x + mixed
     aux = None
     if "ffn" in lp:
@@ -220,12 +304,13 @@ def _layers(unit_lp: Params, repeats: int):
 
 
 def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, cache=None,
-                train: bool = False, remat_units: bool = False):
+                train: bool = False, remat_units: bool = False, remat_policy: str = "full"):
     """The stack, repeat by repeat. Returns the final-norm hidden states
     and ``aux``, the MoE layers' losses summed in the reference's order (f32
     scalar; 0 without MoE). ``remat_units`` recomputes each repeat's unit
     in the backward pass (the reference's ``jax.checkpoint(unit_body)``
-    inside its scan), so a unit's input is the only activation it keeps."""
+    inside its scan): under ``remat_policy`` "full" a unit's input is the
+    only activation it keeps, under "save_comm" its named outputs too."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     rope = _rope(cfg, positions)
@@ -242,9 +327,15 @@ def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, cache=None,
                 aux = aux + a
         return x, aux
 
+    def contexts(r):
+        if remat_policy != "save_comm":
+            return None
+        return lambda: save_comm_contexts(_output_weights(cfg, [lp[r] for lp in layers]))
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(repeats):
-        x, aux = remat(unit_body, x, aux, r) if remat_units else unit_body(x, aux, r)
+        x, aux = remat(unit_body, x, aux, r, context_fn=contexts(r)) if remat_units \
+            else unit_body(x, aux, r)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -279,9 +370,8 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     query-chunked plain attention, differentiable on the card) over the
     prefill form (K9 on the card, which has no backward); the caller asks
     for it, it is never inferred from the inputs. ``remat`` (training form
-    only) recomputes each unit in the backward pass; ``remat_policy``
-    "full" is the one the port computes (``check_remat_policy``)."""
-    check_ported(cfg)
+    only) recomputes each unit in the backward pass, all of it under
+    ``remat_policy`` "full", all but its named outputs under "save_comm"."""
     if remat:
         check_remat_policy(remat_policy)
         if not train:
@@ -289,7 +379,8 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = embed_inputs(params, tokens, prefix_embeds)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, S, device=x.device) if return_cache else None
-    x, aux = _run_layers(params, cfg, x, cache, train=train, remat_units=remat)
+    x, aux = _run_layers(params, cfg, x, cache, train=train, remat_units=remat,
+                         remat_policy=remat_policy)
     out = x if return_hidden else _mask_padded_logits(_head(params, cfg, x), cfg)
     return (out, aux, cache) if return_cache else (out, aux)
 
@@ -320,7 +411,6 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=None, device=None)
     """A zeroed serving cache, one entry a unit position, stacked over the
     repeats: an attention position's {"k", "v"} of ``s_max`` positions in
     ``dtype``, a mamba2 position's {"ssm" (f32), "conv" (``dtype``)}."""
-    check_ported(cfg)
     dtype = dtype or dtype_of(cfg.dtype)
     unit, repeats = _unit_info(cfg)
     return tuple(init_attention_cache(cfg, batch, s_max, dtype, device, lead=(repeats,))
@@ -339,7 +429,6 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int, *
     layer needs at least ``d_conv - 1`` prompt tokens for its conv state.
     ``prefix_embeds`` as in ``forward``: the cache then holds the prefix's
     P positions before the tokens', and decoding goes on at P + S."""
-    check_ported(cfg)
     x = embed_inputs(params, tokens, prefix_embeds)
     B, S, _ = x.shape
     if S > s_max:
@@ -354,7 +443,6 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Any, token: torch.Tensor
     """token: (B,) integer; ``pos`` a host int (read by attention layers
     only). Writes the new K/V, or a mamba2 layer's new state, into
     ``cache`` in place and returns (logits (B, vocab_size), cache)."""
-    check_ported(cfg)
     x = embed_lookup(params["embed"], token[:, None])
     rope = _rope(cfg, torch.full((1,), pos, device=x.device))  # a fill, no host-to-device copy
     unit, repeats = _unit_info(cfg)
@@ -369,6 +457,11 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Any, token: torch.Tensor
                 mixed, new = mamba2.mamba2_decode(lp["mixer"], h, cfg, c)
                 c["ssm"].copy_(new["ssm"])
                 c["conv"].copy_(new["conv"])
+            if _parallel(cfg, kinds[p_idx], lp):
+                # (x + mixed) + y: the reference's decode order (:335), not
+                # the full-sequence form's x + (mixed + y)
+                x = x + mixed + _ffn(lp, h, cfg, p_idx)[0]
+                continue
             x = x + mixed
             if "ffn" in lp:
                 x = x + _ffn(lp, rmsnorm(lp["norm2"], x, cfg.norm_eps), cfg, p_idx)[0]

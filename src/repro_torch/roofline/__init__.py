@@ -1,2 +1,2 @@
-"""Parameter counts and model FLOPs (``params.py``, ``analysis.py``), the
-twin of ``repro/roofline``'s arithmetic over ``ArchConfig``."""
+"""Parameter counts, model FLOPs and the one-card roofline terms
+(``params.py``, ``analysis.py``), the twin of ``repro/roofline``."""

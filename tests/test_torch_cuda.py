@@ -1055,3 +1055,48 @@ def test_reduced_vlm_and_audio_on_the_card_follow_the_cpu(gen, arch):
     for a, b in zip(T.leaves(res["cuda"]), T.leaves(res["cpu"])):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
+
+
+def test_reduced_parallel_block_on_the_card_follows_the_cpu(gen):
+    """Reduced phi3.5-moe with ``parallel_block`` (f32, TF32 off): greedy
+    tokens equal, prefill and decode logits and the cache within 2e-4 of
+    the CPU's; K9 runs once a prefill for each attention layer."""
+    cfg = dataclasses.replace(reduced(get_config("phi3.5-moe-42b-a6.6b")), parallel_block=True)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = serve.make_prompts(cfg, 2, 100, seed=0)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = serve.generate(params, cfg, prompts, 8)
+        before = gqa_attention_op.launches
+        card = serve.generate(T.map(lambda x: x.cuda(), params), cfg, prompts.cuda(), 8)
+        assert gqa_attention_op.launches == before + cfg.n_layers
+        lc, cc = transformer.prefill(T.map(lambda x: x.cuda(), params), cfg, prompts.cuda(), 108)
+        lp, cp = transformer.prefill(params, cfg, prompts, 108)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert torch.equal(card["tokens"].cpu(), cpu["tokens"])
+    for key in ("prefill_logits", "last_logits"):
+        torch.testing.assert_close(card[key].cpu(), cpu[key], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=2e-4, atol=2e-4)
+    for a, b in zip(T.leaves(cc), T.leaves(cp)):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite-20b", "phi3.5-moe-42b-a6.6b"])
+def test_save_comm_on_the_card_matches_full_remat(gen, arch):
+    """The selective remat on the card: the loss and every gradient within
+    rtol 1e-5, atol 1e-6 of full remat's (the reference's own test, S=1100:
+    the training attention's chunks rematerialised inside each unit)."""
+    cfg = reduced(get_config(arch))
+    params = T.map(lambda x: x.cuda(), transformer.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    toks = {"tokens": serve.make_prompts(cfg, 2, 1100, seed=1).cuda()}
+    out = {}
+    for policy in ("full", "save_comm"):
+        p = T.map(lambda a: a.detach().clone().requires_grad_(), params)
+        loss = transformer.loss_fn(p, cfg, toks, remat=True, remat_policy=policy)
+        out[policy] = (loss.detach(), torch.autograd.grad(loss, T.leaves(p)))
+    torch.testing.assert_close(out["save_comm"][0], out["full"][0], rtol=1e-5, atol=1e-6)
+    for a, b in zip(out["save_comm"][1], out["full"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

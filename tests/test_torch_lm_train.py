@@ -169,7 +169,8 @@ def test_forward_takes_the_form_it_is_asked_for():
     """The training form is the caller's choice: the prefill form's logits
     equal the training form's (the plain K9 version on the CPU against the
     chunked attention), remat needs the training form, and save_comm (a
-    sharding policy) raises."""
+    selective remat, ``tests/test_torch_perf_variants.py``) gives full
+    remat's loss while an unknown policy raises."""
     _, cfg = _cfgs("minicpm")
     params = _port(_jax_weights("minicpm"))
     toks = torch.from_numpy(_tokens(cfg.vocab_size, 2, 64)).long()
@@ -178,10 +179,12 @@ def test_forward_takes_the_form_it_is_asked_for():
     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="train=True"):
         transformer.forward(params, cfg, toks, remat=True)
-    with pytest.raises(NotImplementedError, match="sharding, dry run"):
-        transformer.loss_fn(params, cfg, {"tokens": toks}, remat=True, remat_policy="save_comm")
-    with pytest.raises(NotImplementedError, match="sharding, dry run"):
-        spmd.make_train_step(cfg, optim.sgd(0.1), "shadow", remat_policy="save_comm")
+    assert torch.equal(
+        transformer.loss_fn(params, cfg, {"tokens": toks}, remat=True, remat_policy="save_comm"),
+        transformer.loss_fn(params, cfg, {"tokens": toks}, remat=True))
+    assert callable(spmd.make_train_step(cfg, optim.sgd(0.1), "shadow", remat_policy="save_comm"))
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        spmd.make_train_step(cfg, optim.sgd(0.1), "shadow", remat_policy="save_most")
 
 
 # ---------------------------------------------------------------------------

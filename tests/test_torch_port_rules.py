@@ -62,6 +62,19 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert not bad, f"forbidden imports in the port: {bad}"
 
 
+def test_every_reference_module_has_its_counterpart():
+    """The ``comm`` of the two packages' modules is empty: every ``*.py``
+    under ``src/repro`` has a file of the same path under ``src/repro_torch``
+    (the launcher's mesh, specs and dry run, and the sharding rules and
+    context, were the last)."""
+    ref = os.path.join(ROOT, "src", "repro")
+    mods = sorted(os.path.relpath(os.path.join(d, n), ref) for d, _, names in os.walk(ref)
+                  for n in names if n.endswith(".py"))
+    assert len(mods) > 60
+    missing = [m for m in mods if not os.path.exists(os.path.join(PORT, m))]
+    assert not missing, missing
+
+
 def test_import_scan_catches_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom repro.core import sync\nimport jax.numpy as jnp\n"
@@ -241,6 +254,7 @@ def test_threaded_cli_ignores_the_membership_schedule(capsys):
 
 import dataclasses  # noqa: E402
 
+from repro_torch import tree as T  # noqa: E402
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer, whisper  # noqa: E402
@@ -348,10 +362,20 @@ def test_serve_without_device_needs_the_card(no_cuda):
 
 
 def test_unported_families_are_refused_before_any_weight():
-    gen = torch.Generator().manual_seed(0)
+    """The name is kept from when this test held the port's refusals, so
+    that its history reads as one test; what it checks now is that nothing
+    is refused any more: ``parallel_block``, the last variant that raised,
+    draws the reference's tree (its unused ``norm2`` too) and serves a
+    prompt on the CPU."""
     cfg = dataclasses.replace(reduced(get_config("granite-20b")), parallel_block=True)
-    with pytest.raises(NotImplementedError, match="parallel_block"):
-        transformer.init_params(cfg, gen)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    plain = transformer.init_params(dataclasses.replace(cfg, parallel_block=False),
+                                    torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(T.leaves(params), T.leaves(plain)))
+    assert "norm2" in params["unit"][0]
+    assert not hasattr(transformer, "check_ported")
+    logits, cache = transformer.prefill(params, cfg, torch.zeros((1, 4), dtype=torch.long), 6)
+    assert logits.shape == (1, transformer.padded_vocab(cfg)) and bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-base"])

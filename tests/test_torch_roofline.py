@@ -1,12 +1,14 @@
 """The port's parameter counts and model FLOPs (``roofline/params.py``,
 ``roofline/analysis.py``) against the JAX package's, for every arch at its
 full config, and the reference's ``TestModelFlops``
-(``tests/test_roofline.py:60``) on the port.
+(``tests/test_roofline.py:60``) and ``TestRooflineTerms`` (:34) on the
+port, the latter over the H100's data-sheet constants.
 
 The counts are exact integers, so they are held equal. ``param_count``
 walks ``init_params`` on shapes alone: kimi-k2's 1.04 T parameters are
 counted without a byte of weights.
 """
+import dataclasses
 import functools
 import resource
 
@@ -86,3 +88,52 @@ class TestModelFlops:
         assert param_count(w) == 70_680_576 and param_count(v) == 34_440_297_472
         mf = RA.model_flops_estimate(v, INPUT_SHAPES["prefill_32k"])
         assert mf == 2.0 * 34_440_297_472 * 32 * 32768
+
+
+class TestRooflineTerms:
+    """The reference's ``TestRooflineTerms`` over the NVIDIA H100 80GB HBM3
+    (SXM, 700 W) data-sheet constants of ``launch/mesh.py``: 989 TFLOP/s
+    dense bf16, 3.35 TB/s, NVLink 4 at 450 GB/s a direction."""
+
+    def _r(self, **kw):
+        base = dict(arch="a", shape="s", mesh="m", mode="syncdp", chips=256,
+                    flops_per_chip=989e12, bytes_per_chip=3.35e12,
+                    collective_bytes_per_chip=450e9, collectives={},
+                    arg_bytes=0, temp_bytes=0, out_bytes=0, model_flops=0.0)
+        base.update(kw)
+        return RA.Roofline(**base)
+
+    def test_unit_terms(self):
+        r = self._r()
+        assert r.t_compute == pytest.approx(1.0)
+        assert r.t_memory == pytest.approx(1.0)
+        assert r.t_collective == pytest.approx(1.0)
+
+    def test_bottleneck_attribution(self):
+        assert self._r(collective_bytes_per_chip=4.5e12).bottleneck == "collective"
+        assert self._r(bytes_per_chip=4e13).bottleneck == "memory"
+        assert self._r(flops_per_chip=1e16, bytes_per_chip=1e9,
+                       collective_bytes_per_chip=1e9).bottleneck == "compute"
+
+    def test_useful_ratio(self):
+        r = self._r(model_flops=989e12 * 256 * 0.75)
+        assert r.useful_flops_ratio == pytest.approx(0.75)
+
+    def test_analyze_gives_one_card_and_no_collective(self):
+        """``analyze`` over a trace's counts: one chip, no collective, and
+        ``fits_one_card`` from the arguments and the peak (80 GB)."""
+        cost = RA.TraceCost(flops=989e12, bytes_accessed=6.7e12, arg_bytes=60e9,
+                            out_bytes=1e9, peak_bytes=20e9)
+        r = RA.analyze(cost, arch="a", shape="s", mode="syncdp")
+        assert (r.chips, r.mesh, r.collectives, r.collective_bytes_per_chip) == (1, "1", {}, 0.0)
+        assert r.t_compute == pytest.approx(1.0) and r.t_memory == pytest.approx(2.0)
+        assert r.bottleneck == "memory" and r.temp_bytes == 19e9 and r.fits_one_card
+        assert not RA.analyze(dataclasses.replace(cost, peak_bytes=20e9 + 1), arch="a",
+                              shape="s", mode="syncdp").fits_one_card
+        assert "no collective" in r.notes and r.row()["fits_one_card"]
+
+    def test_no_tpu_figure_is_the_cards(self):
+        from repro_torch.launch import mesh
+
+        assert (mesh.PEAK_FLOPS_BF16, mesh.HBM_BW, mesh.LINK_BW) == (989e12, 3.35e12, 450e9)
+        assert not hasattr(RA, "collective_bytes")  # no HLO to parse on one card

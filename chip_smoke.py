@@ -134,7 +134,19 @@ Phases, each of which asserts (any failure exits non-zero):
      times of cell 4's and cell 14's prefills and cell 9's shadow step and
      EASGD sync step, with the predicted and measured peak memory; no
      bound may exceed 1.05 times its measured time;
- 12. the kernel table as one JSON line, then the result line.
+ 12. the mesh program (``torch.distributed``'s DeviceMesh and DTensor): a
+     one-rank ``nccl`` group and a (1, 1, 1) pod x data x model mesh on the
+     card; reduced granite-20b's shadow step (R=1 on "pod") with the MA
+     sync, a syncdp step and a prefill (K9 on each rank's local heads; its
+     launch counter must rise) on DTensors, each held against the one-card
+     step on the card; then the collective table of cell 9's configuration
+     (minicpm-2b's widths at 24 layers, B=4 x 2,048 a data rank), traced on
+     a fake 2x16x16 and 16x16 process group: the shadow step (no
+     collective may cross the pods), the syncdp step and the EASGD sync
+     step (both must, on 2x16x16), their cross-pod bytes and t_collective
+     at NVLink's 450 GB/s;
+ 13. the kernel table as one JSON line (K9's f32 kernel a row of its own,
+     timed at granite-20b's MQA layout), then the result line.
 """
 import cProfile
 import dataclasses
@@ -992,7 +1004,8 @@ def check_attention(torch, q, k, v, causal, mem_rate, timed=False, by_row=False)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, S, d)
         out.update(timings(
             torch, lambda: gqa_attention_op(q, k, v, causal=causal),
-            lambda: gqa_attention_ref(q, k, v, causal=causal), DEVICE_NAMES["flash_attention"],
+            lambda: gqa_attention_ref(q, k, v, causal=causal),
+            DEVICE_NAMES["flash_attention" if dtype == "bfloat16" else "flash_attention_f32"],
             lambda: Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                     enable_gqa=True)))
     torch.cuda.empty_cache()
@@ -1094,14 +1107,25 @@ def serving_phase(torch, mem_rate, all_ops, path_counts):
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
-    # K9 at the reference tests' shapes, f32 and bf16
+    # K9 at the reference tests' shapes, f32 and bf16; the f32 kernel (the
+    # CUDA cores) timed at the last, granite-20b's MQA layout
     gen = torch.Generator().manual_seed(4)
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, h, kv, d, causal in ATTN_CASES:
             q = torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
             k, v = (torch.randn((b, s, kv, d), generator=gen).to("cuda", dtype) for _ in range(2))
-            emit({"phase": "kernel_check", "name": "flash_attention",
-                  **check_attention(torch, q, k, v, causal, mem_rate)})
+            timed = dtype == torch.float32 and (b, s, h, kv, d, causal) == ATTN_CASES[-1]
+            chk = check_attention(torch, q, k, v, causal, mem_rate, timed=timed)
+            emit({"phase": "kernel_check", "name": "flash_attention", **chk})
+            if timed:
+                f32_row = dict(name="flash_attention_f32", route="cuda",
+                               source="src/repro_torch/kernels/flash_attention/csrc/"
+                                      "flash_attention.cu",
+                               replaces="src/repro/kernels/flash_attention/flash_attention.py:81",
+                               **{kk: chk[kk] for kk in (
+                                   "shape", "kv_heads", "max_abs_err", "tol", "bound_ms",
+                                   "bound_by", "ms", "op_ms", "traced_launches", "call_ms",
+                                   "plain_ms", "plain_call_ms", "library_ms")})
 
     # phi3-medium-14b at full width, its weights drawn on the card
     cfg = get_config(SERVE_ARCH)
@@ -1180,7 +1204,7 @@ def serving_phase(torch, mem_rate, all_ops, path_counts):
         diff = max(diff, (card[kk].cpu() - cpu[kk]).abs().max().item())
     emit({"phase": "serve_reference", "arch": "phi3-medium-14b reduced, n_kv_heads=2, f32",
           "tokens_equal": True, "max_logit_diff_cuda_vs_cpu": diff})
-    return row
+    return row, f32_row
 
 
 def lm_train_phase(torch, all_ops, path_counts):
@@ -1478,6 +1502,156 @@ def roofline_phase(torch):
               "measured_peak_GB": measured_peak, "trace_s": time.perf_counter() - t0})
         assert cost.kernel_calls == k9_calls, (name, cost.kernel_calls)
         assert bound <= ROOFLINE_SLACK * measured, (name, bound, measured)
+
+
+MESH_ARCH = "granite-20b"  # reduced (f32): the reference mesh test's model
+MESH_LAYOUT = (("pod", "data", "model"), (1, 1, 1))  # one card as a 3-axis mesh
+# cell 9's configuration on the reference's meshes: minicpm-2b's widths at
+# 24 layers, B=4 x 2,048 on each data rank (a (pod, data) rank in syncdp),
+# R=2 replicas on "pod" in shadow mode; the fake trace of one rank
+CELL9_PER_RANK = 4
+
+
+def mesh_step_diff(torch, a, b, rtol=1e-4, atol=1e-5):
+    """The largest |a - b| over two trees (a DTensor read whole), each pair
+    held within ``rtol``, ``atol`` (the trajectory tolerance by default)."""
+    from repro_torch import tree as T
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    diff = 0.0
+    for x, y in zip(T.leaves(a), T.leaves(b), strict=True):
+        x, y = whole(x), whole(y)
+        torch.testing.assert_close(x, y, rtol=rtol, atol=atol)
+        diff = max(diff, (x.double() - y.double()).abs().max().item())
+    return diff
+
+
+def mesh_phase(torch, all_ops, path_counts, backend_name="nccl", device="cuda"):
+    """Phase 12: the mesh program on the card. A one-rank ``nccl`` group and
+    a (1, 1, 1) pod x data x model ``DeviceMesh`` on the card; reduced
+    granite-20b's shadow step (R=1 on "pod") and MA sync, a syncdp step and
+    a prefill (K9 on each rank's local heads: its launch counter must rise)
+    on DTensors, each held against the one-card step on the same card at
+    the trajectory tolerance (the prefill's logits at K9's f32 one); then
+    the group destroyed and the collective table of cell 9's configuration
+    traced on a fake 2x16x16 (and 16x16) process group: shadow, syncdp and
+    the EASGD sync step, with cross-pod bytes and t_collective."""
+    import torch.distributed as dist
+
+    from repro_torch import optim
+    from repro_torch import tree as T
+    from repro_torch.configs.base import InputShape, get_config, reduced
+    from repro_torch.core import spmd
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import specs as SP
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.sharding import ctx as shctx
+    from repro_torch.sharding import rules
+
+    t0 = time.perf_counter()
+    dist.init_process_group(backend_name, rank=0, world_size=1, store=dist.HashStore())
+    try:
+        dm = M.device_mesh(M.Mesh(*MESH_LAYOUT), device)
+        cfg = reduced(get_config(MESH_ARCH))
+        params = spmd.init_params(cfg, torch.Generator().manual_seed(0), device=device)
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 4, 64), generator=gen).to(device)
+        opt = optim.adagrad(1e-2)
+        sync = spmd.make_sync_step(cfg, SyncConfig(algo="ma").validate())
+        diffs = {}
+
+        def placed(tree, replica_axis=None):
+            specs = rules.build_param_specs(tree, dm, fsdp_axis="data",
+                                            replica_axis=replica_axis)
+            return SP.place(T.map(torch.clone, tree), specs, dm)
+
+        # the shadow step (R=1 on "pod") and the MA sync
+        one = spmd.stack_replicas(params, 1)
+        one_st = opt.init(one)
+        one, one_st, one_loss = spmd.make_train_step(cfg, opt, "shadow")(
+            one, one_st, {"tokens": tokens})
+        one, _ = sync(one, None)
+        mesh = placed(spmd.stack_replicas(params, 1), "pod")
+        mesh_st = placed(opt.init(spmd.stack_replicas(params, 1)), "pod")
+        batch = {"tokens": SP.place(tokens, ("pod", "data", None), dm)}
+        with shctx.activation_mesh(dm, batch_axes=("data",)):
+            mesh, mesh_st, mesh_loss = spmd.make_train_step(cfg, opt, "shadow")(
+                mesh, mesh_st, batch)
+            mesh, _ = sync(mesh, None)
+        diffs["shadow_step_and_ma_sync"] = mesh_step_diff(torch, (mesh, mesh_st, mesh_loss),
+                                                          (one, one_st, one_loss))
+        # a syncdp step
+        flat = {"tokens": tokens.reshape(4, 64)}
+        one = T.map(torch.clone, params)
+        one_st = opt.init(one)
+        one, one_st, one_loss = spmd.make_train_step(cfg, opt, "syncdp")(one, one_st, flat)
+        mesh, mesh_st = placed(params), placed(opt.init(params))
+        with shctx.activation_mesh(dm, batch_axes=("pod", "data")):
+            mesh, mesh_st, mesh_loss = spmd.make_train_step(cfg, opt, "syncdp")(
+                mesh, mesh_st, {"tokens": SP.place(flat["tokens"], (("pod", "data"), None),
+                                                    dm)})
+        diffs["syncdp_step"] = mesh_step_diff(torch, (mesh, mesh_st, mesh_loss),
+                                              (one, one_st, one_loss))
+        # a prefill: K9 on the local heads
+        prefill = spmd.make_prefill_step(cfg, 64)
+        one_logits, one_cache = prefill(params, flat)
+        mesh_params = placed(params)
+        reset_counts(all_ops.values())
+        with shctx.activation_mesh(dm, batch_axes=("pod", "data")):
+            mesh_logits, mesh_cache = prefill(
+                mesh_params, {"tokens": SP.place(flat["tokens"], (("pod", "data"), None), dm)})
+        counts = path_counts["mesh_path"] = {k: op.launches for k, op in all_ops.items()}
+        assert counts["flash_attention"] == cfg.n_layers, counts
+        tol = ATTN_TOL["float32"]  # K9's f32 tolerance
+        diffs["prefill_logits"] = mesh_step_diff(torch, mesh_logits, one_logits, tol, tol)
+        diffs["prefill_cache"] = mesh_step_diff(torch, mesh_cache, one_cache, tol, tol)
+        emit({"phase": "mesh_path", "arch": f"{MESH_ARCH} reduced, f32",
+              "mesh": dict(zip(*MESH_LAYOUT)), "backend": backend_name,
+              "max_abs_diff_mesh_vs_one_card": diffs, "k9_launches": counts["flash_attention"],
+              "seconds": time.perf_counter() - t0})
+    finally:
+        dist.destroy_process_group()
+
+    # cell 9's collectives on the reference's meshes (fake process groups)
+    cell9 = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    table = {}
+    for multi_pod in (True, False):
+        t1 = time.perf_counter()
+        dm, name, chips = dryrun.mesh_for(multi_pod)
+        ranks = chips // 16  # (pod x) data ranks
+        shape = InputShape("cell9", LM_S, ranks * CELL9_PER_RANK, "train")
+        programs = {
+            "shadow": dryrun.build(cell9, "cell9", dm, mode="shadow", optimizer="adam",
+                                   n_replicas=LM_R, n_microbatches=1, shape_override=shape),
+            "syncdp": dryrun.build(cell9, "cell9", dm, mode="syncdp", optimizer="adam",
+                                   n_microbatches=1, shape_override=shape),
+            "sync:easgd": dryrun.build_sync_step(LM_ARCH, dm, algo="easgd", n_replicas=LM_R,
+                                                 cfg=cell9)}
+        for mode, program in programs.items():
+            cost = dryrun._trace_cost(program)
+            r = RA.analyze(cost, arch=LM_ARCH, shape="cell9", mesh_name=name, mode=mode,
+                           chips=chips)
+            table[f"{name} {mode}"] = row = {
+                "chips": chips, "global_batch": shape.global_batch,
+                "collective_bytes_per_chip": r.collective_bytes_per_chip,
+                "cross_pod_collectives": r.cross_pod_collectives,
+                "cross_pod_bytes_per_chip": r.cross_pod_bytes_per_chip,
+                "t_collective_ms": r.t_collective * 1e3, "t_compute_ms": r.t_compute * 1e3,
+                "t_memory_ms": r.t_memory * 1e3, "by_kind_and_span": r.collective_table}
+            if mode == "shadow":
+                assert row["cross_pod_collectives"] == 0, row
+            elif multi_pod:
+                assert row["cross_pod_collectives"] > 0, row
+        emit({"phase": "mesh_collectives", "mesh": name, "cell": "cell 9 configuration",
+              "per_rank_batch": CELL9_PER_RANK, "seq": LM_S, "layers": LM_LAYERS,
+              "rows": {k: v for k, v in table.items() if k.startswith(name + " ")},
+              "link_GBps": M.LINK_BW / 1e9, "seconds": time.perf_counter() - t1})
+    dist.destroy_process_group()
+    return table
 
 
 def draw_weights(torch, cfg, path):
@@ -3383,7 +3557,7 @@ def main() -> int:
     emit({"phase": "release", "allocated_GB_before": alloc / 1e9, "peak_GB_before": peak / 1e9,
           "allocated_GB_after": torch.cuda.memory_allocated() / 1e9,
           "reserved_GB_after": torch.cuda.memory_reserved() / 1e9})
-    k9_row = serving_phase(torch, mem_rate, all_ops, path_counts)
+    k9_row, k9_f32_row = serving_phase(torch, mem_rate, all_ops, path_counts)
     k9_row["launches"] = path_counts["serve_phi3"]["flash_attention"]
 
     # 8 · the LM trainer
@@ -3400,12 +3574,17 @@ def main() -> int:
     k9_row["launches_serve_parallel"] = path_counts["serve_parallel"]["flash_attention"]
     # 11 · the dry run's roofline against the measured cells
     roofline_phase(torch)
-    k9_row["launches_families_reference"] = {
+    # 12 · the mesh program: one card as a (1, 1, 1) mesh, cell 9 on fake meshes
+    mesh_phase(torch, all_ops, path_counts)
+    # the reduced configs of the mesh path and the families' references are
+    # f32: their K9 launches are the f32 kernel's, and the bf16 row has none
+    k9_f32_row["launches"] = path_counts["mesh_path"]["flash_attention"]
+    k9_f32_row["launches_families_reference"] = {
         p[len("families_reference_"):]: c["flash_attention"] for p, c in path_counts.items()
         if p.startswith("families_reference_")}
     k8_row["launches"] = sum(c["interaction"] for c in path_counts.values())  # no path runs K8
 
-    # 12 · the kernel table, the card, the result
+    # 13 · the kernel table, the card, the result
     main_path_of = {"replica_mean": "sim_ma", "ma_update": "sim_ma",
                     "replica_mean_rows": "elastic_ma", "ma_update_rows": "elastic_ma",
                     "bmuf_update": "sim_bmuf", "bmuf_update_rows": "elastic_bmuf",
@@ -3416,8 +3595,10 @@ def main() -> int:
         assert row["launches"] > 0, (k, row["launches_by_path"])
     rows.update(sync_rows)
     rows["interaction"], rows["flash_attention"] = k8_row, k9_row
+    rows["flash_attention_f32"] = k9_f32_row
     for k, row in rows.items():  # the LM trainers' full-width windows: none
-        op = k if k in all_ops else k.rsplit("_", 2)[0]
+        op = k if k in all_ops else "flash_attention" if k.startswith("flash_attention") \
+            else k.rsplit("_", 2)[0]
         row["launches_lm_train"] = path_counts["lm_train"][op]
         row["launches_lm_train_save_comm"] = path_counts["lm_train_save_comm"][op]
         row["launches_lm_train_parallel"] = path_counts["lm_train_parallel"][op]

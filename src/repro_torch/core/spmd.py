@@ -21,17 +21,29 @@ Every family trains and serves here: the dense, moe, ssm, hybrid and vlm
 ones through ``models/transformer.py``, the audio one (whisper) through
 ``models/whisper.py``. Trees may mix dtypes (mamba2's f32 ``A_log``,
 ``dt_bias`` and ``D`` and the MoE router beside bf16 weights), which every
-update and sync keeps leaf by leaf. The port runs one process on one
-device: the reference's mesh (its ``spmd_axis_name``, the syncdp
-all-reduce) becomes placement data, ``sharding/rules.py``'s specs beside the
-structures of ``launch/specs.py``, and ``launch/dryrun.py`` traces these
-steps on them and counts what they execute.
+update and sync keeps leaf by leaf.
+
+On a device mesh (trees of DTensors placed by ``launch/specs.py``, under
+``sharding.ctx.activation_mesh``) the same steps are the reference's mesh
+program. Shadow mode: the replica dim is ``Shard(0)`` on "pod", and each
+rank trains only the replicas it holds, each as a tree of DTensors on the
+("data", "model") sub-mesh over views of its local shards
+(``_local_replicas``): indexing the pod-sharded stack would all-gather it
+across pods, the very traffic ShadowSync keeps out of the step. So the
+step's only collectives run within a pod, and its losses come back
+unreduced, (R,) on "pod". Syncdp: the batch is sharded over ("pod",
+"data") and the gradients' ``Partial`` placements are reduced over both
+where the update meets its parameters (an all-reduce, or a reduce-scatter
+for an FSDP-sharded leaf). The sync step's pytree ``land`` runs on the
+pod-sharded stacks, so its means and pulls cross the pods. Microbatches
+split each rank's local batch, so no microbatch moves data.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import optim
 from repro_torch import tree as T
@@ -40,8 +52,72 @@ from repro_torch.core import algorithms
 from repro_torch.core import sync as S
 from repro_torch.models import transformer, whisper
 from repro_torch.models.layers import mm
+from repro_torch.sharding.ctx import settle
 
 Tree = Any
+
+
+def on_mesh(tree: Tree) -> bool:
+    """Whether ``tree`` holds DTensors (the mesh program's arguments)."""
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in T.leaves(tree))
+
+
+def _split_local(x, k: int, j: int):
+    """Microbatch ``j`` of ``k`` of a DTensor batch leaf: the ``j``-th of ``k``
+    equal parts of each rank's local rows, placed as ``x`` is (no data
+    moves)."""
+    from torch.distributed.tensor import DTensor
+
+    local = x.to_local()
+    part = local.reshape(k, local.shape[0] // k, *local.shape[1:])[j]
+    shape = (x.shape[0] // k, *x.shape[1:])
+    return DTensor.from_local(part, x.device_mesh, x.placements, run_check=False, shape=shape,
+                              stride=part.stride())
+
+
+def _local_replicas(stack: Tree, replica_axis: str = "pod"):
+    """The replicas this rank holds of a stack whose leaves carry a leading
+    replica dim, ``Shard(0)`` on ``replica_axis`` (or held whole where the
+    mesh has no such axis): one tree a local replica, each leaf a DTensor
+    on the other mesh dims' sub-mesh over a view of the local shard (an
+    update written into it lands in the stack). Returns (replicas, the
+    stack's mesh, the replica axis's mesh dim or None)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    leaves = T.leaves(stack)
+    dm = leaves[0].device_mesh
+    names = tuple(dm.mesh_dim_names)
+    i = names.index(replica_axis) if replica_axis in names else None
+    sub = dm if i is None else dm[tuple(n for n in names if n != replica_axis)]
+    n_local = leaves[0].to_local().shape[0]
+
+    def view(x, r):
+        placements = list(x.placements)
+        if x.device_mesh != dm or (i is not None and placements[i] != Shard(0)):
+            raise ValueError(f"a replica stack's leaf is {placements} on {x.device_mesh}; "
+                             f"expected Shard(0) on {replica_axis!r}")
+        if i is not None:
+            del placements[i]
+        if any(p.is_shard(0) for p in placements):
+            raise ValueError(f"the replica dim is sharded off {replica_axis!r}: {x.placements}")
+        placements = [Shard(p.dim - 1) if p.is_shard() else p for p in placements]
+        return DTensor.from_local(x.to_local()[r], sub, placements, run_check=False,
+                                  shape=x.shape[1:], stride=x.stride()[1:])
+
+    with torch.no_grad():
+        return [T.map(lambda x: view(x, r), stack) for r in range(n_local)], dm, i
+
+
+def _replicated(loss):
+    """A DTensor loss reduced to ``Replicate()`` on its mesh (within the
+    mesh it lies on; a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(loss, DTensor) or all(p.is_replicate() for p in loss.placements):
+        return loss
+    return loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim)
 
 
 def _loss_fn(cfg: ArchConfig, remat_policy: str = "full") -> Callable:
@@ -81,17 +157,26 @@ def _accum_grads(loss_fn: Callable, params: Tree, batch: Tree, n_microbatches: i
         return torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
 
     if n_microbatches <= 1:
-        loss = loss_fn(params, batch)
+        loss = _replicated(loss_fn(params, batch))
         grads = grad(loss)
         return T.unflatten(params, list(grads)), loss.detach()
     k = n_microbatches
-    mb = T.map(lambda x: x.reshape(k, x.shape[0] // k, *x.shape[1:]), batch)
-    acc = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device) for p in leaves]
-    acc_l = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    if on_mesh(batch):  # each rank's local rows, split k ways; sums kept Partial
+        micro = [T.map(lambda x: _split_local(x, k, j), batch) for j in range(k)]
+        acc, acc_l = None, 0.0
+    else:
+        mb = T.map(lambda x: x.reshape(k, x.shape[0] // k, *x.shape[1:]), batch)
+        micro = [S.tree_slice(mb, j) for j in range(k)]
+        acc = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device) for p in leaves]
+        acc_l = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for j in range(k):
-        loss = loss_fn(params, S.tree_slice(mb, j))
-        for a, g in zip(acc, grad(loss)):
-            a.add_(g.to(grad_dtype))
+        loss = _replicated(loss_fn(params, micro[j]))
+        grads = grad(loss)
+        if acc is None:  # on a mesh: the first microbatch's sums, left pending
+            acc = [g.to(grad_dtype) for g in grads]
+        else:
+            for a, g in zip(acc, grads):
+                a.add_(g.to(grad_dtype))
         acc_l = acc_l + loss.detach()
     return T.unflatten(params, [a / float(k) for a in acc]), acc_l / float(k)
 
@@ -118,13 +203,18 @@ def make_train_step(
         live = T.map(lambda a: a.detach().requires_grad_(), params)
         grads, loss = _accum_grads(loss_fn, live, batch, n_microbatches, gdt)
         del live
-        grads = T.leaves(grads)
+        # on a mesh each gradient takes its parameter's placements: an
+        # all-reduce where it is replicated, FSDP's reduce-scatter where sharded
+        grads = [settle(g, p.placements) if isinstance(g, DTensor) else g
+                 for g, p in zip(T.leaves(grads), T.leaves(params))]
         with torch.no_grad():
             optim.update_in_place(opt, params, opt_state, grads)
         return loss
 
     if mode == "shadow":
         def train_step(params, opt_state, batch):
+            if on_mesh(params):
+                return params, opt_state, _shadow_on_mesh(one, params, opt_state, batch)
             R = T.leaves(params)[0].shape[0]
             losses = [one(S.tree_slice(params, r), S.tree_slice(opt_state, r),
                           S.tree_slice(batch, r)) for r in range(R)]
@@ -136,6 +226,25 @@ def make_train_step(
         return params, opt_state, one(params, opt_state, batch)
 
     return train_step
+
+
+def _shadow_on_mesh(one: Callable, params: Tree, opt_state: Tree, batch: Tree):
+    """The shadow step on a mesh: ``one`` on each local replica's views
+    (``_local_replicas``), so nothing crosses the pods. Returns the (R,)
+    losses, ``Shard(0)`` on "pod" (replicated on a mesh without one), each
+    reduced within its own pod only."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    reps, dm, i = _local_replicas(params)
+    states = _local_replicas(opt_state)[0] if T.leaves(opt_state) else [opt_state] * len(reps)
+    batches = _local_replicas(batch)[0]
+    losses = [_replicated(one(p, st, b)).to_local() for p, st, b in zip(reps, states, batches)]
+    placements = [Replicate()] * dm.ndim
+    if i is not None:
+        placements[i] = Shard(0)
+    R = T.leaves(params)[0].shape[0]
+    return DTensor.from_local(torch.stack(losses), dm, placements, run_check=False, shape=(R,),
+                              stride=(1,))
 
 
 def make_sync_step(cfg: ArchConfig, sync_cfg: S.SyncConfig) -> Callable:

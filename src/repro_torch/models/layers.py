@@ -2,7 +2,12 @@
 
 Parameters are plain dicts of tensors, as in the reference. Linear weights
 are ``(d_in, d_out)`` and applied as ``x @ w``. The reference's sharding
-constraints (``constrain``) are identity without a mesh and are dropped.
+constraints (``constrain``) stand where it has them: the identity without
+a device mesh, a DTensor redistribution on one (``sharding/ctx.py``). On a
+mesh, attention runs on each rank's own batch rows and heads
+(``local_heads``), and a few ops take a form DTensor shards (``heads``,
+``embed_lookup``, ``_logsumexp``, ``_gather_last``); a plain tensor takes
+the one-card path unchanged.
 Where the reference wraps a block in ``jax.checkpoint``, the port uses
 ``torch.utils.checkpoint`` without re-entry (``remat``). Where a product's
 operands differ in dtype (whisper's f32 frames on bf16 weights), ``mm`` and
@@ -16,9 +21,11 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.kernels.flash_attention.ops import gqa_attention_op
+from repro_torch.sharding.ctx import constrain, placed_like, reduce_partial, settle
 
 Params = dict
 
@@ -137,6 +144,19 @@ def attention_init(draw, cfg, dtype) -> Params:
     }
 
 
+def heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) as (B, S, n, hd). On a mesh, a last dim sharded over a
+    mesh dim that does not divide ``n`` is gathered first (DTensor cannot
+    split a shard across a head; the reference's constraint then leaves
+    the heads whole too)."""
+    if isinstance(t, DTensor):
+        want = [Replicate() if p.is_shard(t.ndim - 1) and n % t.device_mesh.size(i) else p
+                for i, p in enumerate(t.placements)]
+        if want != list(t.placements):
+            t = t.redistribute(t.device_mesh, want)
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     if n_rep == 1:
         return k
@@ -163,16 +183,51 @@ Q_CHUNK = 1024  # the plain path's query rows a block (the reference's default)
 
 def _chunked_attention(q, k, v, positions, cfg, causal: bool = True) -> torch.Tensor:
     """The reference's full-sequence path (``repro/models/layers.py:147-185``):
-    ``_sdpa_block`` over query chunks of ``Q_CHUNK`` rows (the largest chunk
-    that divides S when ``Q_CHUNK`` does not: 750 for whisper's 1,500
-    frames), so a (chunk, Sk) score tile is the largest live one; when ``q``
-    needs a gradient each chunk is recomputed in the backward pass. Causal
-    (and windowed, where the config has a window), or every key when not
-    ``causal`` (then k and v may be longer than q: cross-attention). Plain
-    torch, differentiable on every device."""
-    B, S, H, hd = q.shape
+    k and v repeated to every query head, q, k and v constrained to
+    ("batch", None, "model", None) as the reference constrains them, then
+    ``_attend``: ``_sdpa_block`` over query chunks of ``Q_CHUNK`` rows (the
+    largest chunk that divides S when ``Q_CHUNK`` does not: 750 for
+    whisper's 1,500 frames), so a (chunk, Sk) score tile is the largest live
+    one; when ``q`` needs a gradient each chunk is recomputed in the backward
+    pass. Causal (and windowed, where the config has a window), or every key
+    when not ``causal`` (then k and v may be longer than q: cross-attention).
+    Plain torch, differentiable on every device; on a device mesh each rank
+    attends over its own batch rows and heads (``local_heads``)."""
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    q, k, v = _head_sharded(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep))
+
+    def attend(q, k, v):
+        return _attend(q, k, v, positions, cfg, causal)
+
+    return local_heads(attend, q, k, v)
+
+
+def _head_sharded(q, k, v):
+    """q, k, v (B, S, H, hd) constrained to ("batch", None, "model", None)."""
+    spec = ("batch", None, "model", None)
+    return constrain(q, spec), constrain(k, spec), constrain(v, spec)
+
+
+def local_heads(fn: Callable, q, k, v):
+    """``fn(q, k, v)``, or on DTensors (a device mesh) ``fn`` over each rank's
+    local shards, the output placed as ``q`` is: attention is local to a
+    batch row and a head, so the head-sharded program needs no collective
+    inside it (DTensor would otherwise decompose the score products into
+    batched products over strided shards of the merged batch and head
+    dims). A plain tensor runs ``fn`` as it is."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=(q.placements,),
+                     in_placements=(q.placements, k.placements, v.placements),
+                     device_mesh=q.device_mesh)(q, k, v)
+
+
+def _attend(q, k, v, positions, cfg, causal: bool) -> torch.Tensor:
+    """The query-chunked attention of ``_chunked_attention`` over k and v
+    with as many heads as q."""
+    B, S, H, hd = q.shape
     scale = hd ** -0.5
 
     def block_mask(q_pos):
@@ -228,20 +283,23 @@ def attention_apply(
     tensors). ``rope``: the positions' ``rope_tables``."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = mm(x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    q = heads(mm(x, p["wq"]), cfg.n_heads, hd)
     if cross_kv is not None:
         enc = cross_kv[0]
-        Sk = enc.shape[1]
-        k = mm(enc, p["wk"]).reshape(B, Sk, cfg.n_kv_heads, hd)
-        v = mm(enc, p["wv"]).reshape(B, Sk, cfg.n_kv_heads, hd)
+        k = heads(mm(enc, p["wk"]), cfg.n_kv_heads, hd)
+        v = heads(mm(enc, p["wv"]), cfg.n_kv_heads, hd)
         out = _chunked_attention(q, k, v, positions, cfg, causal=False)
         return mm(out.reshape(B, S, cfg.n_heads * hd), p["wo"])
-    k = mm(x, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = mm(x, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    k = heads(mm(x, p["wk"]), cfg.n_kv_heads, hd)
+    v = heads(mm(x, p["wv"]), cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta, rope)
     k = apply_rope(k, positions, cfg.rope_theta, rope)
     if train or cfg.sliding_window is not None:
         out = _chunked_attention(q, k, v, positions, cfg, causal=causal)
+    elif isinstance(q, DTensor):  # K9 on each rank's own rows and heads
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        out = local_heads(lambda q, k, v: gqa_attention_op(q, k, v, causal=causal),
+                          *_head_sharded(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)))
     else:
         out = gqa_attention_op(q, k, v, causal=causal)
     y = mm(out.reshape(B, S, cfg.n_heads * hd), p["wo"])
@@ -252,8 +310,14 @@ def _decode_attend(q, k, v, n_kv: int) -> torch.Tensor:
     """One query position against (B, L, n_kv, hd) keys and values, the
     query heads grouped onto their KV head instead of a repeated copy.
     Scores and softmax in f32, the probabilities in q's dtype; operands of
-    two dtypes promoted as in JAX. Returns (B, 1, n_heads * hd)."""
+    two dtypes promoted as in JAX. Returns (B, 1, n_heads * hd). On a
+    mesh the K/V are repeated to every query head and each rank attends
+    with its own heads (``local_heads``), as the full-sequence path does."""
     B, _, H, hd = q.shape
+    if isinstance(q, DTensor):
+        n_rep = H // n_kv
+        return local_heads(lambda q, k, v: _decode_attend(q, k, v, q.shape[2]),
+                           *_head_sharded(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)))
     qg = q.reshape(B, n_kv, H // n_kv, hd)
     qp, k = promoted(qg, k)
     scores = torch.einsum("bgrd,bkgd->bgrk", qp, k).float() * hd ** -0.5
@@ -282,14 +346,14 @@ def attention_decode(
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     n_kv = cfg.n_kv_heads
-    q = mm(x, p["wq"]).reshape(B, 1, cfg.n_heads, hd)
+    q = heads(mm(x, p["wq"]), cfg.n_heads, hd)
     if cross_kv is not None:
         return mm(_decode_attend(q, cross_kv[0], cross_kv[1], n_kv), p["wo"]), cache
     if rope is None and cfg.rope_theta > 0:
         rope = rope_tables(torch.full((1,), pos, device=x.device), hd, cfg.rope_theta)
     q = apply_rope(q, None, cfg.rope_theta, rope)
-    k_new = apply_rope(mm(x, p["wk"]).reshape(B, 1, n_kv, hd), None, cfg.rope_theta, rope)
-    v_new = mm(x, p["wv"]).reshape(B, 1, n_kv, hd)
+    k_new = apply_rope(heads(mm(x, p["wk"]), n_kv, hd), None, cfg.rope_theta, rope)
+    v_new = heads(mm(x, p["wv"]), n_kv, hd)
     cache["k"][:, pos:pos + 1] = k_new.to(cache["k"].dtype)
     cache["v"][:, pos:pos + 1] = v_new.to(cache["v"].dtype)
     lo = 0 if cfg.sliding_window is None else max(0, pos - cfg.sliding_window + 1)
@@ -337,18 +401,61 @@ def embed_init(draw, vocab: int, d_model: int, dtype) -> Params:
 
 
 def embed_lookup(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    """The tokens' rows of the table. On a mesh (a DTensor table) the table
+    is gathered along its vocab shards (one all-gather) and looked up with
+    ``F.embedding``: DTensor's vocab-parallel lookup leaves a masked partial
+    gradient that a tied head's plain partial one cannot join, and its
+    indexing's backward is not sharded in every torch version."""
+    table = p["table"]
+    if isinstance(table, DTensor):
+        return F.embedding(tokens, _Gathered.apply(table))
+    return table[tokens]
+
+
+class _Gathered(torch.autograd.Function):
+    """A DTensor table gathered along its vocab shards; its gradient goes
+    back through ``settle`` (scattered over the vocab, then reduced over
+    the batch axes), where DTensor's own backward would reduce the whole
+    table first."""
+
+    @staticmethod
+    def forward(ctx, table):
+        ctx.placements = table.placements
+        whole = [Replicate() if pl.is_shard(0) else pl for pl in table.placements]
+        return table.redistribute(table.device_mesh, whole)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return settle(grad, ctx.placements)
 
 
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
 
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last dim. On a vocab-sharded DTensor, as its
+    parts: the row maxima and the sums of the shifted exponentials are
+    reduced across the shards (two small all-reduces), where DTensor would
+    gather the whole logits for ``torch.logsumexp``."""
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    m = reduce_partial(logits.detach().amax(dim=-1, keepdim=True))
+    return m[..., 0] + torch.log(reduce_partial(torch.exp(logits - m).sum(dim=-1)))
+
+
+def _gather_last(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``: the labels' columns. A vocab-sharded
+    DTensor's gather is a masked partial sum, reduced before the size-1 dim
+    goes (DTensor cannot drop it from a pending mask)."""
+    return reduce_partial(torch.gather(logits, -1, labels[..., None].long()))[..., 0]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token-level CE. logits: (..., V) any float dtype; labels integer."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = _gather_last(logits, labels)
     return (lse - gold).mean()
 
 
@@ -379,9 +486,10 @@ def chunked_softmax_ce(
     masked = torch.arange(V, device=x.device) >= vocab_limit
 
     def body(xc, lc, wc):
-        logits = (xc @ w_head).float().masked_fill(masked, -1e30)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+        logits = constrain((xc @ w_head).float(), ("batch", None, "model"))
+        logits = logits.masked_fill(placed_like(masked, logits), -1e30)
+        lse = _logsumexp(logits)
+        gold = _gather_last(logits, lc)
         return ((lse - gold) * wc).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)

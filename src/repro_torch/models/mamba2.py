@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Params, dense_init, rmsnorm
+from repro_torch.sharding.ctx import constrain
 
 
 def effective_chunk(L: int, chunk: int) -> int:
@@ -159,7 +160,7 @@ def mamba2_apply(p: Params, x: torch.Tensor, cfg, return_state: bool = False):
                          "cannot be filled from it")
     chunk = effective_chunk(L, s.chunk)
 
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["in_proj"])
+    z, xbc, dt_raw = _split_proj(cfg, constrain(x @ p["in_proj"], ("batch", None, "model")))
     conv_tail = xbc[:, L - (s.d_conv - 1):, :] if return_state else None
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xs, Bm, Cm = _split_xbc(cfg, xbc)

@@ -25,6 +25,7 @@ import threading
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
@@ -48,6 +49,7 @@ from repro_torch.models.layers import (
     swiglu_init,
 )
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.sharding.ctx import constrain, distribute
 
 
 def _unit_info(cfg: ArchConfig) -> Tuple[int, int]:
@@ -282,7 +284,10 @@ def _apply_layer_full(lp: Params, x, cfg: ArchConfig, kind: str, pos: int, posit
     if _parallel(cfg, kind, lp):
         y, aux = _ffn(lp, h, cfg, pos)
         return x + _named_sum(mixed, y), aux
-    x = x + mixed
+    # on a mesh the row-parallel output product is a pending sum over
+    # "model": it is reduced where it meets the residual (the tensor-parallel
+    # all-reduce), so the norm after it sees whole rows
+    x = x + constrain(mixed, ("batch", None, None))
     aux = None
     if "ffn" in lp:
         y, aux = _ffn(lp, rmsnorm(lp["norm2"], x, cfg.norm_eps), cfg, pos)
@@ -299,8 +304,21 @@ def _layers(unit_lp: Params, repeats: int):
     stacked leaf: in the backward pass the layers' gradients are stacked
     once, where indexing each repeat would add a leaf-sized gradient a
     layer."""
-    parts = [a.unbind(0) for a in T.leaves(unit_lp)]
+    parts = [_unsharded_dim0(a).unbind(0) for a in T.leaves(unit_lp)]
     return [T.unflatten(unit_lp, [p[r] for p in parts]) for r in range(repeats)]
+
+
+def _unsharded_dim0(a: torch.Tensor) -> torch.Tensor:
+    """``a``, or a DTensor sharded on its repeats dim gathered along it (the
+    reference's MoE rule, read with a replica dim in front, takes a dense
+    FFN's (R, repeats, f, d) stack for an expert stack and shards the
+    repeats over "model"; its scan gathers them as this does)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(a, DTensor) or not any(p.is_shard(0) for p in a.placements):
+        return a
+    return a.redistribute(a.device_mesh, [Replicate() if p.is_shard(0) else p
+                                          for p in a.placements])
 
 
 def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, cache=None,
@@ -312,6 +330,7 @@ def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, cache=None,
     inside its scan): under ``remat_policy`` "full" a unit's input is the
     only activation it keeps, under "save_comm" its named outputs too."""
     S = x.shape[1]
+    x = constrain(x, ("batch", None, None))
     positions = torch.arange(S, device=x.device)
     rope = _rope(cfg, positions)
     unit, repeats = _unit_info(cfg)
@@ -323,6 +342,7 @@ def _run_layers(params: Params, cfg: ArchConfig, x: torch.Tensor, cache=None,
             c = None if cache is None else _layer(cache[pos], r)
             x, a = _apply_layer_full(layers[pos][r], x, cfg, kinds[pos], pos, positions, rope,
                                      c, train)
+            x = constrain(x, ("batch", None, None))
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -434,8 +454,25 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int, *
     if S > s_max:
         raise ValueError(f"prompt length {S} exceeds the cache's {s_max} positions")
     cache = init_cache(cfg, B, s_max, device=x.device)
+    if isinstance(x, DTensor):
+        cache = _cache_on_mesh(cache, x.device_mesh)
     hidden, _ = _run_layers(params, cfg, x, cache)
     return _head(params, cfg, hidden[:, -1, :]), cache
+
+
+# the serving cache's placements on a mesh, by leaf: (repeats, B, S, kv, hd)
+# attention K/V, (repeats, B, H, p, n) SSD state, (repeats, B, K, C) conv tail
+_CACHE_SPECS = {"k": (None, "batch", None, "model", None),
+                "v": (None, "batch", None, "model", None),
+                "ssm": (None, "batch", "model", None, None),
+                "conv": (None, "batch", None, "model")}
+
+
+def _cache_on_mesh(cache, device_mesh):
+    """The zeroed cache as DTensors on the prefill's mesh: the batch over
+    the batch axes, heads (or channels) over "model" where they divide."""
+    return tuple({k: distribute(t, _CACHE_SPECS[k], device_mesh) for k, t in c.items()}
+                 for c in cache)
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Any, token: torch.Tensor, pos: int

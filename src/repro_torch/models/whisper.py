@@ -41,6 +41,7 @@ from repro_torch.models.layers import (
     layernorm_init,
     mm,
 )
+from repro_torch.sharding.ctx import constrain
 from repro_torch.models.transformer import (
     _layers,
     _mask_padded_logits,
@@ -103,7 +104,8 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *,
     the encoder's final-norm output in the frames' dtype (or the weights'
     where that promotes higher)."""
     S = frames.shape[1]
-    x = frames + sinusoids(S, cfg.d_model, frames.device).to(frames.dtype)
+    x = constrain(frames + sinusoids(S, cfg.d_model, frames.device).to(frames.dtype),
+                  ("batch", None, None))
     positions = torch.arange(S, device=frames.device)
     for lp in _layers(params["enc"], cfg.encoder.n_layers):
         h = layernorm(lp["norm1"], x, cfg.norm_eps)
@@ -125,7 +127,7 @@ def decode_full(params: Params, cfg: ArchConfig, tokens: torch.Tensor, enc_out: 
     self-attention's input, so they are not the self-attention's keys."""
     B, S = tokens.shape
     x = embed_lookup(params["embed"], tokens)
-    x = x + sinusoids(S, cfg.d_model, x.device).to(x.dtype)
+    x = constrain(x + sinusoids(S, cfg.d_model, x.device).to(x.dtype), ("batch", None, None))
     positions = torch.arange(S, device=x.device)
     hd = cfg.resolved_head_dim
     ks, vs = [], []

@@ -1,2 +1,3 @@
 """Partition rules and the activation context (``rules.py``, ``ctx.py``),
-the twin of ``repro/sharding``: plain spec data, read by the dry run."""
+the twin of ``repro/sharding``: specs as data, DTensor placements on a
+device mesh, and the constraints model code asks for."""

@@ -8,11 +8,12 @@ are right-aligned so stacked layer leaves (the leading ``repeats`` dim)
 inherit the trailing rule; a tree with a leading replica dim puts the
 replica axis (``pod``) first.
 
-A spec is a tuple with one entry a dim, each an axis name or ``None``, as
-``jax.sharding.PartitionSpec`` is. Nothing in the port's compute reads these
-specs: it runs on one card. They are what the reference would place, held
-equal to its outputs (``tests/test_torch_sharding.py``), and the dry run
-reports them beside its structures (``launch/specs.py``).
+A spec is a tuple with one entry a dim, each an axis name, a tuple of
+axis names or ``None``, as ``jax.sharding.PartitionSpec`` is; the specs are
+held equal to the reference's (``tests/test_torch_sharding.py``). The
+one-card program reads none of them. On a ``DeviceMesh`` a spec becomes
+DTensor placements (``to_placements``, ``build_param_placements``), where
+the reference attaches a ``NamedSharding``.
 """
 from __future__ import annotations
 
@@ -144,11 +145,47 @@ def param_spec(path, leaf, *, model_axis="model", fsdp_axis=None, mesh_shape=Non
 
 def build_param_specs(params: Any, mesh, *, model_axis="model", fsdp_axis=None,
                       replica_axis=None) -> Any:
-    """A tree of specs matching ``params``; ``mesh`` a ``launch.mesh.Mesh``."""
+    """A tree of specs matching ``params``; ``mesh`` a ``launch.mesh.Mesh``
+    or a ``DeviceMesh``."""
+    from repro_torch.launch.mesh import mesh_shape
+
+    shape = mesh_shape(mesh)
     return tree_map_with_path(
         lambda path, leaf: param_spec(path, leaf, model_axis=model_axis, fsdp_axis=fsdp_axis,
-                                      mesh_shape=mesh.shape, replica_axis=replica_axis),
+                                      mesh_shape=shape, replica_axis=replica_axis),
         params)
+
+
+def to_placements(spec, device_mesh) -> tuple:
+    """One DTensor placement a dim of ``device_mesh``: ``Shard(d)`` on each
+    mesh dim that tensor dim ``d`` of ``spec`` is sharded over (an axis
+    tuple such as ``("pod", "data")`` shards it on each, major to minor, in
+    mesh order as a ``PartitionSpec`` does), ``Replicate()`` on the rest."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, ax in enumerate(spec):
+        idx = [names.index(a) for a in (ax if isinstance(ax, tuple) else (ax,)
+                                        if ax is not None else ())]
+        if idx != sorted(idx) or any(out[i] != Replicate() for i in idx):
+            raise ValueError(f"spec {spec} on mesh {names}: an axis twice or out of mesh order")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def build_param_placements(params: Any, device_mesh, *, model_axis="model", fsdp_axis=None,
+                           replica_axis=None) -> Any:
+    """``build_param_specs`` on a ``DeviceMesh``: a tree of placements
+    matching ``params`` (the reference's ``NamedSharding`` tree)."""
+    from repro_torch.launch.mesh import mesh_shape
+
+    shape = mesh_shape(device_mesh)
+    return tree_map_with_path(
+        lambda path, leaf: to_placements(param_spec(
+            path, leaf, model_axis=model_axis, fsdp_axis=fsdp_axis, mesh_shape=shape,
+            replica_axis=replica_axis), device_mesh), params)
 
 
 def kv_cache_spec(leaf_shape, mesh_shape: Dict[str, int], *, batch_axis="data",

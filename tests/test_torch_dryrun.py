@@ -41,6 +41,16 @@ from repro_torch.launch import specs  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_world_left():
+    """The mesh rows start a fake process group; none outlives this file."""
+    yield
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def _fake(*shapes, dtype=torch.float32):
     with FakeTensorMode():
         return tuple(torch.empty(s, dtype=dtype) for s in shapes)
@@ -229,7 +239,7 @@ def test_run_one_traces_kimi_k2_without_its_weights(capsys):
     allocated could not run): an ``OK`` row whose arguments do not fit one
     card, with the process's peak resident memory grown by under 1 GB."""
     before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss  # KiB on Linux
-    row = D.run_one("kimi-k2-1t-a32b", "decode_32k")
+    row = D.run_one("kimi-k2-1t-a32b", "decode_32k", one_card=True)
     grown = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss - before
     assert row["status"] == "ok" and not row["fits_one_card"], row
     assert row["arg_bytes"] > 2e12 and grown < 2 ** 20, (row["arg_bytes"], grown)
@@ -240,10 +250,12 @@ def test_run_one_traces_kimi_k2_without_its_weights(capsys):
 
 
 def test_row_is_the_reference_row_plus_the_card_fields():
-    row = D.run_one("granite-20b", "decode_32k", verbose=False)
+    row = D.run_one("granite-20b", "decode_32k", verbose=False, one_card=True)
     ref = set(jRA.Roofline("a", "s", "m", "syncdp", 1, 0.0, 0.0, 0.0, {}, 0, 0, 0).row())
     ref |= {"status", "compile_s"}
-    assert set(row) - ref == {"peak_bytes", "fits_one_card", "trace_s", "placed_param_bytes"}
+    assert set(row) - ref == {"peak_bytes", "fits_one_card", "trace_s", "placed_param_bytes",
+                              "collective_table", "cross_pod_collectives",
+                              "cross_pod_bytes_per_chip"}
     assert ref - set(row) == {"compile_s"}
 
 
@@ -262,7 +274,7 @@ def test_no_fsdp_changes_the_placed_parameter_bytes(capsys):
     assert D.placed_param_bytes(cfg, mesh=make_host_mesh()) == total
     tp, fsdp = (D.placed_param_bytes(cfg, fsdp=f) for f in (False, True))
     assert total / 16 < tp < total / 8 and tp / 16 < fsdp < tp / 8, (total, tp, fsdp)
-    rows = [D.run_one("granite-20b", "decode_32k", fsdp=f) for f in (True, False)]
+    rows = [D.run_one("granite-20b", "decode_32k", fsdp=f, one_card=True) for f in (True, False)]
     assert [r["placed_param_bytes"] for r in rows] == [fsdp, tp]
     assert ({k: v for k, v in rows[0].items() if k not in ("placed_param_bytes", "trace_s")}
             == {k: v for k, v in rows[1].items() if k not in ("placed_param_bytes", "trace_s")})
@@ -288,7 +300,7 @@ def test_build_gives_the_structures_with_their_specs():
 
 def test_run_one_reports_a_skip_and_a_sync_step():
     assert D.run_one("granite-20b", "long_500k", verbose=False)["status"] == "skipped"
-    row = D.run_one("minicpm-2b", "train_4k", sync_algo="easgd", verbose=False)
+    row = D.run_one("minicpm-2b", "train_4k", sync_algo="easgd", verbose=False, one_card=True)
     assert row["status"] == "ok" and row["mode"] == "sync:easgd" and row["flops_per_chip"] == 0
     # EASGD over the R=2 stack: every weight read and written a few times
     assert row["bytes_per_chip"] > 4 * row["arg_bytes"] / 3
@@ -296,7 +308,7 @@ def test_run_one_reports_a_skip_and_a_sync_step():
 
 @functools.lru_cache(maxsize=None)
 def _variant_rows():
-    kw = dict(verbose=False)
+    kw = dict(verbose=False, one_card=True)
     return (D.run_one("granite-20b", "train_4k", **kw),
             D.run_one("granite-20b", "train_4k", remat_policy="save_comm", **kw),
             D.run_one("granite-20b", "train_4k", parallel_block=True, **kw))
@@ -314,7 +326,7 @@ def test_the_variants_trace():
 
 
 def test_main_prints_rows_and_a_summary(capsys):
-    assert D.main(["--arch", "minicpm-2b", "--shape", "decode_32k"]) == 0
+    assert D.main(["--arch", "minicpm-2b", "--shape", "decode_32k", "--one-card"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("OK    minicpm-2b x decode_32k x 1 [syncdp]  trace=")
     assert any(line.strip().startswith("roofline: t_comp=") for line in out)
@@ -323,8 +335,24 @@ def test_main_prints_rows_and_a_summary(capsys):
 
 @pytest.mark.parametrize("flag", ["--multi-pod", "--both-meshes"])
 def test_multi_pod_exits_naming_one_card(flag, capsys):
+    """``--multi-pod`` and ``--both-meshes`` trace the reference's meshes on
+    a fake process group (they were refused while the port ran one card
+    only): an ``OK`` row with 512 chips (and one with 256 first for both
+    meshes), here for MA's sync step, whose means cross the pods; one
+    card still says it has no collective, and ``--one-card`` with a mesh
+    flag is refused."""
+    assert D.main(["--arch", "minicpm-2b", "--shape", "train_4k", "--sync-algo", "ma",
+                   flag]) == 0
+    out = capsys.readouterr().out.splitlines()
+    ok = [line for line in out if line.startswith("OK    ")]
+    want = ["16x16", "2x16x16"] if flag == "--both-meshes" else ["2x16x16"]
+    assert [line.split(" x ")[2].split()[0] for line in ok] == want
+    assert all(f"chips={ {'16x16': 256, '2x16x16': 512}[m]}" in line for m, line in zip(want, ok))
+    assert any(line.strip().startswith("cross-pod: ") and not line.strip().startswith(
+        "cross-pod: 0 ") for line in out)
+    row = D.run_one("minicpm-2b", "train_4k", sync_algo="ma", multi_pod=True, verbose=False)
+    assert row["status"] == "ok" and row["chips"] == 512 and row["mesh"] == "2x16x16"
+    assert row["cross_pod_collectives"] > 0 and row["t_collective"] > 0
     with pytest.raises(SystemExit) as e:
-        D.main(["--arch", "granite-20b", "--shape", "train_4k", flag])
-    assert e.value.code == 2 and "one card" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="one card"):
-        D.run_one("granite-20b", "train_4k", multi_pod=True)
+        D.main(["--arch", "granite-20b", "--shape", "train_4k", "--one-card", flag])
+    assert e.value.code == 2 and "one-card" in capsys.readouterr().err

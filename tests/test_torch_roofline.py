@@ -136,4 +136,8 @@ class TestRooflineTerms:
         from repro_torch.launch import mesh
 
         assert (mesh.PEAK_FLOPS_BF16, mesh.HBM_BW, mesh.LINK_BW) == (989e12, 3.35e12, 450e9)
-        assert not hasattr(RA, "collective_bytes")  # no HLO to parse on one card
+        # no HLO to parse: the mesh program's collectives are counted as
+        # they run (CollectiveCounter), summed by the reference's kinds
+        assert RA.collective_bytes([]) == {k: 0 for k in RA.KINDS}
+        assert RA.KINDS == ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                            "collective-permute")

@@ -6,8 +6,9 @@
 Phases, each of which asserts (any failure exits non-zero):
   1. the card's name and power limit, the torch and CUDA versions; TF32 off;
   2. build the hand-written kernels from the sources in the checkout; each
-     K9 kernel's registers, shared memory and spills, and the bf16 K9's
-     SASS checked for wgmma (HGMMA) and TMA loads (UTMALDG);
+     K9 kernel's registers, shared memory and spills (the f32 K9's must be
+     0), and the SASS checked: the bf16 K9's for wgmma (HGMMA) and TMA
+     loads (UTMALDG), the f32 K9's for TF32 tensor-core products (HMMA);
   3. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes, and time it beside its bound, the plain version and
      (where there is one) the one PyTorch call computing the same function;
@@ -67,8 +68,8 @@ Phases, each of which asserts (any failure exits non-zero):
      after), phi3-medium-14b at the full width of its CONFIG (bf16, 14.7 B
      parameters drawn on the card), K9 held against its plain version on
      layer 0's q/k/v at B=4 x 2048 and at the reference tests' shapes and
-     granite-20b's MQA layout (f32 on the CUDA-core kernel, bf16 on the
-     tensor-core one), and
+     granite-20b's MQA layout (f32 on the 3xTF32 kernel, bf16 on the wgmma
+     one; f32 also timed at whisper's encoder layout), and
      timed there back to back, after an L2 flush and after a GEMM; then
      ``launch/serve.py``'s warm-up at the timed shape, 5 timed prefills
      (median and spread) + 31 greedy decode steps (exactly 40 K9 launches a
@@ -146,7 +147,8 @@ Phases, each of which asserts (any failure exits non-zero):
      step (both must, on 2x16x16), their cross-pod bytes and t_collective
      at NVLink's 450 GB/s;
  13. the kernel table as one JSON line (K9's f32 kernel a row of its own,
-     timed at granite-20b's MQA layout), then the result line.
+     timed at granite-20b's MQA layout and at whisper's encoder layout,
+     with the bounds of both f32 routes), then the result line.
 """
 import cProfile
 import dataclasses
@@ -168,6 +170,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # for their type (FP32_RATE, BF16_RATE).
 MEM_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H100": 3.35e12, "H200": 4.8e12}
 FP32_RATE = 67e12  # H100 SXM, non-tensor fp32 (data sheet)
+TF32_RATE = 495e12  # H100 SXM, dense tf32 tensor cores (data sheet)
 BF16_RATE = 989e12  # H100 SXM, dense bf16 tensor cores (data sheet)
 R, M, B = 4, 4, 128
 TIMED_ITERS, WARM_ITERS = 20, 3
@@ -199,6 +202,9 @@ ATTN_BF16_ATOL, ATTN_BF16_RTOL, ATTN_BF16_REL_NORM = 6e-3, 1e-2, 1e-2
 # the last is granite-20b's MQA layout (48 query heads on 1 KV head, d=128)
 ATTN_CASES = ((1, 128, 2, 2, 64, True), (1, 128, 2, 2, 64, False), (1, 100, 2, 2, 64, True),
               (1, 100, 2, 2, 64, False), (2, 256, 8, 1, 128, True), (1, 1024, 48, 1, 128, True))
+# the f32 kernel's second timed shape: whisper-base's encoder layout (32
+# clips of 1,500 frames, 8/8 heads of 64, every key)
+ATTN_F32_WHISPER = (32, 1500, 8, 8, 64, False)
 # the tiered cache at full width: the sim's hot tier (1,048,576 rows, 537 MB
 # of table + acc, 11.8% of the rows) holds a horizon of three batches (one
 # names ~131,000 rows); the threaded runner's, a PS each
@@ -311,12 +317,15 @@ DEVICE_NAMES_BY_SOURCE = {
     "bmuf_update": {"bmuf_update": "bmuf_rows_kernel", "bmuf_update_rows": "bmuf_rows_kernel"},
     "gossip_update": {"gossip_pair": "gossip_pair_kernel", "gossip_round": "gossip_round_kernel"},
     "interaction": {"interaction": "interaction_kernel"},
-    # bf16 (the serving path) on the tensor cores; f32 on the CUDA cores
+    # both on the tensor cores: bf16 (the serving path) by wgmma, f32 by
+    # mma.sync in 3xTF32
     "flash_attention": {"flash_attention": "flash_attention_wgmma_kernel",
-                        "flash_attention_f32": "flash_attention_kernel"},
+                        "flash_attention_f32": "flash_attention_tf32x3_kernel"},
 }
-# what the bf16 K9's SASS must hold: tensor-core products and TMA loads
+# what the K9 kernels' SASS must hold (patterns): the bf16 kernel's
+# tensor-core products and TMA loads, the f32 kernel's TF32 products
 K9_SASS_OPS = ("HGMMA", "UTMALDG")
+K9_F32_SASS_OPS = (r"HMMA\S*\.TF32",)
 KERNELS = tuple(DEVICE_NAMES_BY_SOURCE)
 K1 = DEVICE_NAMES_BY_SOURCE["embedding_bag"]["embedding_bag"]
 DEVICE_NAMES = {k: g for names in DEVICE_NAMES_BY_SOURCE.values() for k, g in names.items()}
@@ -962,12 +971,20 @@ def check_interaction(torch, mem_rate):
 
 def attention_bound(q, k, causal, mem_rate):
     """Bytes of q, k, v read and out written once; flops of the scores and
-    the products over the (causal) pairs, at the dtype's dense peak."""
+    the products over the (causal) pairs, at the dtype's dense peak: bf16's
+    tensor-core rate, and for f32 the smaller of two routes' bounds, the
+    CUDA cores' f32 rate and the tensor cores' in 3xTF32 (three TF32
+    products for each f32 one). Returns (ms, bound_by, {route: (ms, by)})."""
     Bq, S, H, d = q.shape
     pairs = S * (S + 1) // 2 if causal else S * S
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    rate = BF16_RATE if q.element_size() == 2 else FP32_RATE  # bf16 or f32
-    return bound(nbytes, 4 * d * Bq * H * pairs, mem_rate, rate)
+    flops = 4 * d * Bq * H * pairs
+    if q.element_size() == 2:
+        routes = {"bf16": bound(nbytes, flops, mem_rate, BF16_RATE)}
+    else:
+        routes = {"cuda_cores": bound(nbytes, flops, mem_rate, FP32_RATE),
+                  "tf32x3": bound(nbytes, flops, mem_rate, TF32_RATE / 3)}
+    return (*min(routes.values()), routes)
 
 
 def check_attention(torch, q, k, v, causal, mem_rate, timed=False, by_row=False):
@@ -997,9 +1014,11 @@ def check_attention(torch, q, k, v, causal, mem_rate, timed=False, by_row=False)
         tol = {"atol": ATTN_TOL[dtype], "rtol": ATTN_TOL[dtype]}
     torch.testing.assert_close(got, want, rtol=tol["rtol"], atol=tol["atol"])
     del got, want
-    b_ms, b_by = attention_bound(q, k, causal, mem_rate)
+    b_ms, b_by, routes = attention_bound(q, k, causal, mem_rate)
     out = dict(shape=list(q.shape), kv_heads=k.shape[2], dtype=dtype, causal=causal,
                max_abs_err=err, rel_norm_err=rel_norm, tol=tol, bound_ms=b_ms, bound_by=b_by)
+    if len(routes) > 1:
+        out["bound_ms_by_route"] = {r: ms for r, (ms, _) in routes.items()}
     if timed:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA's (B, H, S, d)
         out.update(timings(
@@ -1099,6 +1118,11 @@ def layer0_qkv(torch, cfg, params, prompts, prefix_embeds=None):
     return x, q, k, v
 
 
+F32_ROW_KEYS = ("shape", "kv_heads", "causal", "max_abs_err", "tol", "bound_ms", "bound_by",
+                "bound_ms_by_route", "ms", "op_ms", "traced_launches", "call_ms", "plain_ms",
+                "plain_call_ms", "library_ms")
+
+
 def serving_phase(torch, mem_rate, all_ops, path_counts):
     """Phase 7. Returns the K9 table row (launches filled from the path)."""
     from repro_torch import tree as T
@@ -1107,8 +1131,9 @@ def serving_phase(torch, mem_rate, all_ops, path_counts):
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
-    # K9 at the reference tests' shapes, f32 and bf16; the f32 kernel (the
-    # CUDA cores) timed at the last, granite-20b's MQA layout
+    # K9 at the reference tests' shapes, f32 and bf16; the f32 kernel (3xTF32
+    # on the tensor cores) timed at the last, granite-20b's MQA layout, and
+    # at whisper's encoder layout
     gen = torch.Generator().manual_seed(4)
     for dtype in (torch.float32, torch.bfloat16):
         for b, s, h, kv, d, causal in ATTN_CASES:
@@ -1122,10 +1147,16 @@ def serving_phase(torch, mem_rate, all_ops, path_counts):
                                source="src/repro_torch/kernels/flash_attention/csrc/"
                                       "flash_attention.cu",
                                replaces="src/repro/kernels/flash_attention/flash_attention.py:81",
-                               **{kk: chk[kk] for kk in (
-                                   "shape", "kv_heads", "max_abs_err", "tol", "bound_ms",
-                                   "bound_by", "ms", "op_ms", "traced_launches", "call_ms",
-                                   "plain_ms", "plain_call_ms", "library_ms")})
+                               **{kk: chk[kk] for kk in F32_ROW_KEYS})
+    b, s, h, kv, d, causal = ATTN_F32_WHISPER
+    q = torch.randn((b, s, h, d), generator=gen).to("cuda")
+    k, v = (torch.randn((b, s, kv, d), generator=gen).to("cuda") for _ in range(2))
+    chk = check_attention(torch, q, k, v, causal, mem_rate, timed=True)
+    emit({"phase": "kernel_check", "name": "flash_attention", "cell": "f32_whisper_encoder",
+          **chk})
+    f32_row["whisper_encoder"] = {kk: chk[kk] for kk in F32_ROW_KEYS}
+    del q, k, v, chk
+    torch.cuda.empty_cache()
 
     # phi3-medium-14b at full width, its weights drawn on the card
     cfg = get_config(SERVE_ARCH)
@@ -2363,26 +2394,28 @@ def ptxas_report(log):
 
 
 def sass_ops(sass, ops):
-    """{function: {op: count}} of a ``cuobjdump -sass`` listing."""
+    """{function: {op: count}} of a ``cuobjdump -sass`` listing (each op a
+    regular expression)."""
     out = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name, body = part.split("\n", 1)
-        out[name.strip()] = {op: body.count(op) for op in ops}
+        out[name.strip()] = {op: len(re.findall(op, body)) for op in ops}
     return out
 
 
 def k9_instance(mangled):
     """(K9 __global__ name, head dim) of a mangled name."""
-    m = re.search(r"(flash_attention(?:_wgmma)?_kernel)ILi(\d+)E", mangled)
+    m = re.search(r"(flash_attention_(?:wgmma|tf32x3)_kernel)ILi(\d+)E", mangled)
     assert m and m.group(1) in DEVICE_NAMES_BY_SOURCE["flash_attention"].values(), mangled
     return m.group(1), int(m.group(2))
 
 
 def k9_build_report(backend):
     """Phase 2, K9: each __global__'s registers, shared memory (static from
-    the build log, dynamic from the library) and spills, and the SASS of the
-    bf16 kernel; fails unless each of its head dims holds wgmma and TMA
-    loads (K9_SASS_OPS)."""
+    the build log, dynamic from the library) and spills, and the SASS of
+    both kernels; fails unless each head dim of the bf16 kernel holds wgmma
+    and TMA loads (K9_SASS_OPS), and each of the f32 kernel TF32 tensor-core
+    products (K9_F32_SASS_OPS) and no spill."""
     import ctypes
 
     lib = backend.library_path("flash_attention")
@@ -2390,21 +2423,26 @@ def k9_build_report(backend):
         report = ptxas_report(f.read())
     smem_fn = backend.c_function("flash_attention", "flash_attention_smem_bytes",
                                  [ctypes.c_int, ctypes.c_int])
+    f32_spills = {}
     for mangled, info in sorted(report.items()):
         name, d = k9_instance(mangled)
         emit({"phase": "build_k9", "kernel": name, "head_dim": d, **info,
               "dynamic_smem_bytes": smem_fn(d, int(name == DEVICE_NAMES["flash_attention"]))})
+        if name == DEVICE_NAMES["flash_attention_f32"]:
+            f32_spills[d] = info["spill_stores"] + info["spill_loads"]
+    assert f32_spills == {32: 0, 64: 0, 128: 0}, f"f32 K9 spill bytes by head dim: {f32_spills}"
     sass = subprocess.run([backend.cuda_tool("cuobjdump"), "-sass", lib], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    found = {}
-    for fn, counts in sass_ops(sass, K9_SASS_OPS + ("UTMASTG",)).items():
+    found = {DEVICE_NAMES["flash_attention"]: {}, DEVICE_NAMES["flash_attention_f32"]: {}}
+    for fn, counts in sass_ops(sass, K9_SASS_OPS + ("UTMASTG",) + K9_F32_SASS_OPS).items():
         name, d = k9_instance(fn)
-        if name == DEVICE_NAMES["flash_attention"]:
-            found[d] = counts
-    emit({"phase": "build_k9_sass", "kernel": DEVICE_NAMES["flash_attention"], "by_head_dim": found})
-    assert sorted(found) == [32, 64, 128], f"bf16 K9 instances in the SASS: {sorted(found)}"
-    for d, counts in found.items():
-        assert all(counts[op] > 0 for op in K9_SASS_OPS), f"bf16 K9 d={d} SASS: {counts}"
+        found[name][d] = counts
+    for name, ops in ((DEVICE_NAMES["flash_attention"], K9_SASS_OPS),
+                      (DEVICE_NAMES["flash_attention_f32"], K9_F32_SASS_OPS)):
+        emit({"phase": "build_k9_sass", "kernel": name, "by_head_dim": found[name]})
+        assert sorted(found[name]) == [32, 64, 128], f"{name} instances: {sorted(found[name])}"
+        for d, counts in found[name].items():
+            assert all(counts[op] > 0 for op in ops), f"{name} d={d} SASS: {counts}"
 
 
 def window_profile(torch, body, first, last):

@@ -11,7 +11,9 @@
 // Bound on this card: operations. At the prefill's shape (S = 2048, D = 128)
 // a query row does 4*S*D flops (causal: half) against 8*D bytes of q, k, v
 // and out, far above the card's ~295 bf16 flops per byte. Only the tensor
-// cores (989 TFLOP/s in bf16, through wgmma) come near that bound.
+// cores come near that bound: 989 TFLOP/s in bf16 through wgmma, and for f32
+// 165 TFLOP/s of f32-accurate products in 3xTF32 through mma.sync (the CUDA
+// cores give 67).
 //
 // Two kernels, chosen by dtype:
 //
@@ -45,15 +47,47 @@
 // pl.when), and the grid runs the heaviest causal query tiles first, for
 // every (b, h), so the short tiles fill the tail.
 //
-// f32: flash_attention_kernel<D>, on the CUDA cores (no path of the port
-// runs attention in f32 on the card; TF32 would not hold the reference's
-// 2e-4). One block of 128 threads owns BQ = 64 query rows of one (b, h) and
-// walks key tiles of BK = 32 staged in shared memory; the running max, the
-// denominator and a (64, D) accumulator stay in registers (each thread owns
-// 4 rows x D/8 columns). Per key tile: scores by float4 reads of q and k rows
-// (k rows padded by 4 floats so a quarter warp hits 8 banks); masking and the
-// online softmax in the log2 domain, rows reduced over 8 lanes by shuffles;
-// p through shared memory into out += p v.
+// f32: flash_attention_tf32x3_kernel<D>, on the tensor cores in 3xTF32.
+// The f32 path runs on the card wherever a model is f32: the mesh program's
+// prefill and the reduced families' prefills. Its work is bound by
+// operations too (granite-20b's MQA layout, S = 1,024, D = 128: 12.9 GFLOP
+// against 51 MB), and the CUDA cores' 67 TFLOP/s of f32 would put its
+// bound at 0.19 ms. One TF32 pass (495 TFLOP/s) keeps 11 significant bits
+// of each operand, and attention so taken lies ~1e-3 from the f32 result:
+// it would not hold the reference's 2e-4. So each operand x is split into
+// two TF32 values, hi = x rounded to TF32 and lo = x - hi (exact), and a . b
+// is taken as lo_a . hi_b + hi_a . lo_b + hi_a . hi_b, the two small
+// products issued first (lo . lo, below 2^-22 of the product, is dropped):
+// within a few 1e-6 of f32, at a third of the TF32 rate, 165 TFLOP/s, 2.5x
+// the CUDA cores'. The tensor cores truncate what they add, so no sum runs
+// long in one accumulator: Q K^T keeps the small products and hi . hi in
+// two, and each key tile's P V starts from zero and is added to O in f32.
+// One block of 4 warps owns BQ = 64 query rows of one (b, h), 16 a warp;
+// cp.async stages its Q tile in shared memory once, and key tiles of BK
+// (32 at D = 128, 64 below) two stages deep (the next tile loads while this
+// one is used; rows at or beyond S are zero-filled). Each warp keeps its
+// (16, D) output accumulator in registers (mma.sync m16n8k8 fragments;
+// 0 spills). Per key tile:
+//   - S = Q K^T: for each 16 columns of D a thread reads 4 consecutive
+//     floats of a q row and of a key row with one 16-byte load each, and the
+//     k-steps take D's columns in the order that puts those 4 in its
+//     fragment slots of two k-steps (the same sum). Q and K rows are D + 16
+//     floats apart, so a quarter warp's reads hit all 32 banks;
+//   - the mask (only on a tile that crosses the diagonal or S) and the
+//     online softmax in the log2 domain on the accumulator, each row
+//     reduced over the four lanes that hold it;
+//   - O += P V with P straight from the accumulator: a thread holds keys
+//     (2t, 2t + 1) of each 8 where the A fragment wants slots (t, t + 4), so
+//     V's B fragment takes its key rows in that order too (key 2t in slot
+//     t, 2t + 1 in slot t + 4) and P never touches shared memory. The
+//     output columns are taken in an order that lets a thread read 4
+//     consecutive floats of a V row at once for four n-tiles (V rows D + 4
+//     floats apart: conflict-free) and write 8 consecutive outputs at the
+//     end.
+// Operands are split in registers as each product uses them (two integer
+// and one f32 operation each). Key tiles wholly above the diagonal are
+// never loaded, a warp skips a tile wholly above its own rows, and the
+// blocks start with every (b, h) of the heaviest causal query tile.
 // <cuda.h> for CUtensorMap and its enums only: libcuda's cuTensorMapEncodeTiled
 // is fetched at run time through the CUDA runtime, so nothing links libcuda
 #include <cuda.h>
@@ -64,188 +98,315 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// f32: the CUDA-core kernel
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = 64;
-constexpr int BK = 32;
-constexpr int NT = 128;  // 16 row groups (ty) x 8 lanes (tx)
-constexpr int LDP = BK + 4;
-
-template <int D>
-__host__ __device__ constexpr int ld_rows() {
-  return D + 4;  // row pitch of the q, k, v tiles in floats (keeps float4 alignment)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int D>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)(BQ + 2 * BK) * ld_rows<D>() + (size_t)BQ * LDP);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows [r0, r0 + rows) of a (., D) row-strided source into dst[r][0..D);
-// rows at or beyond S are zero (a zero v row times p = 0 adds nothing).
+// ---------------------------------------------------------------------------
+// f32: the tensor-core kernel in 3xTF32 (mma.sync)
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+constexpr int BQ = 64;   // query rows a block: 16 a warp
+constexpr int NT = 128;  // 4 warps
+
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          long long stride, int r0, int rows, int S) {
-  constexpr int LD = ld_rows<D>();
-  constexpr int CH = D / 4;  // float4 chunks per row
-  for (int idx = threadIdx.x; idx < rows * CH; idx += NT) {
-    int r = idx / CH, c = (idx - r * CH) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) val = __ldg(reinterpret_cast<const float4*>(src + (long long)(r0 + r) * stride + c));
-    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
+struct Cfg {
+  static constexpr int BK = D == 128 ? 32 : 64;  // keys a tile
+  static constexpr int LDQ = D + 16;             // Q and K row pitch in floats
+  static constexpr int LDV = D + 4;              // V row pitch in floats
+  static constexpr int STAGE = BK * (LDQ + LDV);  // floats of one K, V stage
+  static constexpr int SMEM = (BQ * LDQ + 2 * STAGE) * 4;  // Q, then two stages, bytes
+};
+
+// 16 bytes from global to shared memory, asynchronously; zeros where
+// src_bytes is 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// rows [r0, r0 + ROWS) of a (., D) row-strided source into shared memory
+// LD floats apart, asynchronously; rows at or beyond S zero-filled
+template <int D, int ROWS, int LD>
+__device__ __forceinline__ void load_rows(uint32_t dst, const float* __restrict__ src,
+                                          long long stride, int r0, int S) {
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / NT; ++it) {
+    const int idx = threadIdx.x + it * NT, r = idx / CH, c = (idx - r * CH) * 4;
+    const bool in = r0 + r < S;
+    cp_async16(dst + (r * LD + c) * 4, src + (long long)(in ? r0 + r : 0) * stride + c,
+               in ? 16 : 0);
   }
 }
 
+// K and V rows [k0, k0 + BK) into one stage, as one group of copies
 template <int D>
-__global__ void __launch_bounds__(NT) flash_attention_kernel(
+__device__ __forceinline__ void load_kv(uint32_t sk, const float* __restrict__ kb,
+                                        const float* __restrict__ vb, long long stride, int k0,
+                                        int S) {
+  using C = Cfg<D>;
+  load_rows<D, C::BK, C::LDQ>(sk, kb, stride, k0, S);
+  load_rows<D, C::BK, C::LDV>(sk + C::BK * C::LDQ * 4, vb, stride, k0, S);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away: half a TF32
+// ulp added to the bits, the 13 low bits cleared), lo = x - hi (exact),
+// handed to the tensor cores as it is: they read a TF32 operand's 19 high
+// bits, so lo is taken truncated to TF32. Two integer and one f32 operation
+// (cvt.rna.tf32.f32 compiles to five or more, with its checks for inf/NaN).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D (16 x 8, f32) += A (16 x 8, tf32) . B (8 x 8, tf32)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float at(const float4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 2) flash_attention_tf32x3_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ o, int H, int n_rep, int S, long long q_sb, long long q_ss,
     long long kv_sb, long long kv_ss, int causal, float scale_log2) {
-  constexpr int LD = ld_rows<D>();
-  constexpr int DC = D / 32;  // float4 column groups per thread in the accumulator
+  using C = Cfg<D>;
+  constexpr int BK = C::BK, NJ = BK / 8, NC = D / 16, NV = D / 32;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
+  const float* sm = reinterpret_cast<const float*>(smem4);
+  const uint32_t s0 = smem_u32(smem4), s_kv = s0 + BQ * C::LDQ * 4;
 
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H, kvh = h / n_rep;
-  const float* qb = q + b * q_sb + (long long)h * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // blocks start in the order of their linear index: give it every (b, h)
+  // of the heaviest causal query tile first, then of the next
+  const long long lin = blockIdx.x + (long long)gridDim.x * blockIdx.y;
+  const int rank = (int)(lin / gridDim.y), bh = (int)(lin - (long long)rank * gridDim.y);
+  const int q0 = (gridDim.x - 1 - rank) * BQ;
+  const int b = bh / H, h = bh - b * H, kvh = h / n_rep;
   const float* kb = k + b * kv_sb + (long long)kvh * D;
   const float* vb = v + b * kv_sb + (long long)kvh * D;
+  const int w0 = q0 + warp * 16;       // this warp's first row
+  const int i0 = w0 + g, i1 = i0 + 8;  // this thread's rows
 
-  load_tile<D>(Qs, qb, q_ss, q0, BQ, S);
+  const int kend = causal ? min(S, q0 + BQ) : S;  // keys this block sees
+  const int n_kt = (kend + BK - 1) / BK;
+  load_rows<D, BQ, C::LDQ>(s0, q + b * q_sb + (long long)h * D, q_ss, q0, S);  // with tile 0
+  load_kv<D>(s_kv, kb, vb, kv_ss, 0, S);
+  // this thread's q: rows i0, i1, columns 16c + 4t .. + 3
+  const float* qs = sm + (warp * 16 + g) * C::LDQ + 4 * t;
 
-  float acc[4][4 * DC];
-  float m[4], l[4];
+  // acc[4 cc + jj]: rows (i0, i1) x columns 32 cc + 8t + jj and + 4
+  float acc[D / 8][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < 4 * DC; ++c) acc[r][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's columns only
 
-  const int kend = causal ? min(S, q0 + BQ) : S;  // keys this tile can see
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile's K, V and P are read
-    load_tile<D>(Ks, kb, kv_ss, k0, BK, S);
-    load_tile<D>(Vs, vb, kv_ss, k0, BK, S);
-    __syncthreads();
-
-    // 1. scores of rows 4ty+r against keys tx+8n
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) s[r][n] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      float4 qa[4], ka[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qa[r] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + r) * LD + c);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) ka[n] = *reinterpret_cast<const float4*>(Ks + (tx + 8 * n) * LD + c);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          s[r][n] += qa[r].x * ka[n].x + qa[r].y * ka[n].y + qa[r].z * ka[n].z + qa[r].w * ka[n].w;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < n_kt) {
+      load_kv<D>(s_kv + ((kt + 1) & 1) * C::STAGE * 4, kb, vb, kv_ss, k0 + BK, S);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
+    __syncthreads();  // this tile's stage (and at first Q) is in place for every warp
 
-    // 2. mask, online softmax (log2 domain), p into shared memory
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = q0 + ty * 4 + r;
-      float mt = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int j = k0 + tx + 8 * n;
-        const bool ok = j < S && (!causal || j <= i);
-        s[r][n] = ok ? s[r][n] * scale_log2 : -INFINITY;
-        mt = fmaxf(mt, s[r][n]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[r], mt);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing seen yet
-      const float corr = exp2f(m[r] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const float p = exp2f(s[r][n] - m_use);
-        sum += p;
-        Ps[(ty * 4 + r) * LDP + tx + 8 * n] = p;
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * corr + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * DC; ++c) acc[r][c] *= corr;
-    }
-    __syncthreads();
+    if (!causal || k0 <= w0 + 15) {  // else the tile lies wholly above this warp's rows
+      const float* Ks = sm + BQ * C::LDQ + (kt & 1) * C::STAGE;
+      const float* Vs = Ks + BK * C::LDQ;
 
-    // 3. acc += p v over this tile's keys
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float4 pa[4];
+      // 1. s = q k^T: s[j] is rows (i0, i1) x keys k0 + 8j + 2t, + 1. The
+      // small products and hi . hi go to two accumulators, added at the end:
+      // twice the independent chains, and each sum's truncation in the
+      // tensor cores relative to its own size
+      float sb[NJ][4], ss[NJ][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) pa[r] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + r) * LDP + j);
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+        for (int e = 0; e < 4; ++e) sb[j][e] = ss[j][e] = 0.f;
 #pragma unroll
-        for (int cc = 0; cc < DC; ++cc) {
-          const float4 vv = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + tx * 4 + 32 * cc);
+      for (int c = 0; c < NC; ++c) {
+        // k-step 2c + hh: slots (t, t + 4) are columns 16c + 4t + 2hh, + 1
+        const float4 qa = *reinterpret_cast<const float4*>(qs + 16 * c);
+        const float4 qc = *reinterpret_cast<const float4*>(qs + 8 * C::LDQ + 16 * c);
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float p = jj == 0 ? pa[r].x : jj == 1 ? pa[r].y : jj == 2 ? pa[r].z : pa[r].w;
-            acc[r][cc * 4 + 0] += p * vv.x;
-            acc[r][cc * 4 + 1] += p * vv.y;
-            acc[r][cc * 4 + 2] += p * vv.z;
-            acc[r][cc * 4 + 3] += p * vv.w;
+        for (int hh = 0; hh < 2; ++hh) {
+          split(at(qa, 2 * hh), ah[hh][0], al[hh][0]);
+          split(at(qc, 2 * hh), ah[hh][1], al[hh][1]);
+          split(at(qa, 2 * hh + 1), ah[hh][2], al[hh][2]);
+          split(at(qc, 2 * hh + 1), ah[hh][3], al[hh][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float4 kx = *reinterpret_cast<const float4*>(Ks + (8 * j + g) * C::LDQ + 16 * c + 4 * t);
+          uint32_t bh[4], bl[4];
+          split(kx.x, bh[0], bl[0]);
+          split(kx.y, bh[1], bl[1]);
+          split(kx.z, bh[2], bl[2]);
+          split(kx.w, bh[3], bl[3]);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            mma(ss[j], al[hh], bh[2 * hh], bh[2 * hh + 1]);
+            mma(ss[j], ah[hh], bl[2 * hh], bl[2 * hh + 1]);
+            mma(sb[j], ah[hh], bh[2 * hh], bh[2 * hh + 1]);
           }
         }
       }
+
+      // 2. mask, online softmax in the log2 domain
+      const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > w0);
+      float s[NJ][4];
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float a = (sb[j][e] + ss[j][e]) * scale_log2;
+          float c2 = (sb[j][2 + e] + ss[j][2 + e]) * scale_log2;
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * t + e;
+            if (key >= S || (causal && key > i0)) a = -INFINITY;
+            if (key >= S || (causal && key > i1)) c2 = -INFINITY;
+          }
+          s[j][e] = a;
+          s[j][2 + e] = c2;
+          mx0 = fmaxf(mx0, a);
+          mx1 = fmaxf(mx1, c2);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mu0 = mx0 == -INFINITY ? 0.f : mx0;  // a row with nothing seen yet
+      const float mu1 = mx1 == -INFINITY ? 0.f : mx1;
+      const float corr0 = ex2(m0 - mu0), corr1 = ex2(m1 - mu1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][e] = ex2(s[j][e] - mu0);
+          s[j][2 + e] = ex2(s[j][2 + e] - mu1);
+          sum0 += s[j][e];
+          sum1 += s[j][2 + e];
+        }
+      }
+      l0 = l0 * corr0 + sum0;
+      l1 = l1 * corr1 + sum1;
+
+      // 3. o = o corr + p v: this tile's p v in a fresh accumulator (the
+      // tensor cores truncate what they add; a running sum over every key
+      // would gather that error), added to o in f32. k-step j is keys
+      // k0 + 8j .. + 7, slot t key 2t and slot t + 4 key 2t + 1; n-tile
+      // 4cc + jj's column g is output column 32cc + 4g + jj
+      float pv[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t ph[4], pl[4];
+        split(s[j][0], ph[0], pl[0]);
+        split(s[j][2], ph[1], pl[1]);
+        split(s[j][1], ph[2], pl[2]);
+        split(s[j][3], ph[3], pl[3]);
+        const float* v0 = Vs + (8 * j + 2 * t) * C::LDV + 4 * g;
+#pragma unroll
+        for (int cc = 0; cc < NV; ++cc) {
+          const float4 va = *reinterpret_cast<const float4*>(v0 + 32 * cc);
+          const float4 vc = *reinterpret_cast<const float4*>(v0 + C::LDV + 32 * cc);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split(at(va, jj), bh0, bl0);
+            split(at(vc, jj), bh1, bl1);
+            mma(pv[4 * cc + jj], pl, bh0, bh1);
+            mma(pv[4 * cc + jj], ph, bl0, bl1);
+            mma(pv[4 * cc + jj], ph, bh0, bh1);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] = fmaf(acc[n][0], corr0, pv[n][0]);
+        acc[n][1] = fmaf(acc[n][1], corr0, pv[n][1]);
+        acc[n][2] = fmaf(acc[n][2], corr1, pv[n][2]);
+        acc[n][3] = fmaf(acc[n][3], corr1, pv[n][3]);
+      }
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  // out = acc / l, rows < S only
-  float* ob = o + b * q_sb + (long long)h * D;
+  // out = acc / l, rows < S only: 8 consecutive columns 32cc + 8t .. + 7 a row
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + ty * 4 + r;
-    if (i >= S) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  float* ob = o + b * q_sb + (long long)h * D + 8 * t;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc)
-      *reinterpret_cast<float4*>(ob + (long long)i * q_ss + tx * 4 + 32 * cc) =
-          make_float4(acc[r][cc * 4] * inv, acc[r][cc * 4 + 1] * inv, acc[r][cc * 4 + 2] * inv,
-                      acc[r][cc * 4 + 3] * inv);
+  for (int cc = 0; cc < NV; ++cc) {
+    const float(&a0)[4] = acc[4 * cc], (&a1)[4] = acc[4 * cc + 1];
+    const float(&a2)[4] = acc[4 * cc + 2], (&a3)[4] = acc[4 * cc + 3];
+    if (i0 < S) {
+      float* out = ob + (long long)i0 * q_ss + 32 * cc;
+      *reinterpret_cast<float4*>(out) = make_float4(a0[0] * inv0, a1[0] * inv0, a2[0] * inv0, a3[0] * inv0);
+      *reinterpret_cast<float4*>(out + 4) = make_float4(a0[1] * inv0, a1[1] * inv0, a2[1] * inv0, a3[1] * inv0);
+    }
+    if (i1 < S) {
+      float* out = ob + (long long)i1 * q_ss + 32 * cc;
+      *reinterpret_cast<float4*>(out) = make_float4(a0[2] * inv1, a1[2] * inv1, a2[2] * inv1, a3[2] * inv1);
+      *reinterpret_cast<float4*>(out + 4) = make_float4(a0[3] * inv1, a1[3] * inv1, a2[3] * inv1, a3[3] * inv1);
+    }
   }
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
-               long long q_sb, long long q_ss, long long kv_sb, long long kv_ss, int causal,
-               void* stream) {
-  auto kern = flash_attention_kernel<D>;
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
+           long long q_sb, long long q_ss, long long kv_sb, long long kv_ss, int causal,
+           void* stream) {
+  auto kern = flash_attention_tf32x3_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
   if (B > 0 && S > 0 && H > 0) {
     dim3 grid((S + BQ - 1) / BQ, B * H);
     const float scale_log2 = (1.0f / sqrtf((float)D)) * 1.4426950408889634f;
-    kern<<<grid, NT, smem, (cudaStream_t)stream>>>(
+    kern<<<grid, NT, Cfg<D>::SMEM, (cudaStream_t)stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, H, H / Hkv, S, q_sb, q_ss,
         kv_sb, kv_ss, causal, scale_log2);
   }
   return (int)cudaGetLastError();
 }
+
+}  // namespace tf
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel (wgmma + TMA)
@@ -272,10 +433,6 @@ struct Cfg {
   // 1024 of slack to align the tiles to the swizzle pattern's 1024-byte repeat
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -350,12 +507,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
                                               int layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -714,9 +865,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
                                    int H, int Hkv, int S, int D, long long q_sb, long long q_ss,
                                    long long kv_sb, long long kv_ss, int causal, void* stream) {
   switch (D) {
-    case 32: return launch_f32<32>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
-    case 64: return launch_f32<64>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
-    case 128: return launch_f32<128>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+    case 32: return tf::launch<32>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+    case 64: return tf::launch<64>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+    case 128: return tf::launch<128>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -738,9 +889,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
 // (0 for another D)
 extern "C" int flash_attention_smem_bytes(int D, int bf16) {
   switch (D) {
-    case 32: return bf16 ? wg::Cfg<32>::SMEM : (int)smem_bytes<32>();
-    case 64: return bf16 ? wg::Cfg<64>::SMEM : (int)smem_bytes<64>();
-    case 128: return bf16 ? wg::Cfg<128>::SMEM : (int)smem_bytes<128>();
+    case 32: return bf16 ? wg::Cfg<32>::SMEM : tf::Cfg<32>::SMEM;
+    case 64: return bf16 ? wg::Cfg<64>::SMEM : tf::Cfg<64>::SMEM;
+    case 128: return bf16 ? wg::Cfg<128>::SMEM : tf::Cfg<128>::SMEM;
     default: return 0;
   }
 }

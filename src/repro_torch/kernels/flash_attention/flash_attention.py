@@ -4,8 +4,9 @@ Replaces the TPU kernel ``flash_attention`` of
 ``repro/kernels/flash_attention/flash_attention.py``: one launch computes
 causal or full online-softmax attention for every (batch, head), reading
 grouped KV heads in place and masking keys beyond S inside the kernel. The
-dtype picks the kernel: bf16 runs on the tensor cores (wgmma, TMA loads), f32
-on the CUDA cores.
+dtype picks the kernel; both run on the tensor cores: bf16 through wgmma with
+TMA loads, f32 through mma.sync in 3xTF32 (each operand split into two TF32
+values, three products), which holds f32's accuracy.
 """
 from __future__ import annotations
 

@@ -775,6 +775,23 @@ def test_flash_attention_bf16_tensor_core_edges(gen, s, n_rep, d, causal):
     assert ((got - want).norm() / want.norm()).item() <= 1e-2
 
 
+@pytest.mark.parametrize("s", [1, 33, 63, 64, 65, 127, 1000])
+@pytest.mark.parametrize("n_rep", [1, 4, 48])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_tensor_core_edges(gen, s, n_rep, d, causal):
+    """The 3xTF32 kernel's edges: S about its 64-row query tiles and its key
+    tiles of 32 (d = 128) or 64 (rows and keys past S zero-filled, masked),
+    GQA up to MQA's 48 query heads a KV head, each head dim. Three TF32
+    products hold f32's accuracy: within 1e-5 of the plain version, well
+    inside the reference's 2e-4."""
+    q = torch.randn((2, s, 2 * n_rep, d), generator=gen).cuda()
+    k, v = (torch.randn((2, s, 2, d), generator=gen).cuda() for _ in range(2))
+    got = gqa_attention_op(q, k, v, causal=causal)
+    want = gqa_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("b,s,h,kv,d,causal", [(4, 3136, 56, 8, 128, True),
                                                 (32, 1500, 8, 8, 64, False)],
                          ids=["llava_gqa7", "whisper_encoder"])

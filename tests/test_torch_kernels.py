@@ -856,6 +856,106 @@ def test_tensor_core_k9_rounding_matches_jax():
     np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2, atol=3e-2)
 
 
+def _tf32(x):
+    """TF32 rounding of f32 values as the f32 K9 does it (and as
+    ``cvt.rna.tf32.f32``): half a TF32 ulp added to the bits, then the 13
+    low bits cleared."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """An f32 operand as the tensor cores read it in TF32: its 13 low bits
+    ignored."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32x3_k9(q, k, v, causal, bk, passes=3):
+    """The arithmetic of the f32 tensor-core K9 (csrc/flash_attention.cu),
+    emulated on the CPU: each operand x of both products split into TF32 hi
+    (x rounded) and lo = x - hi (read truncated), and each k-step of 8 (S =
+    Q K^T: D's columns in the kernel's order; P V: 8 keys) taken as lo . hi,
+    then hi . lo, then hi . hi. S keeps the small products and hi . hi in
+    two accumulators, added at the end; each key tile's P V starts from zero
+    and is added to O in f32; the online softmax runs tile by tile over
+    ``bk`` keys in the log2 domain. ``passes=1`` keeps hi . hi alone (one
+    TF32 pass). (B, S, H, d) q, (B, S, Hkv, d) k and v, f32."""
+    B, S, H, d = q.shape
+    n_rep = H // k.shape[2]
+    qf = q.transpose(1, 2)  # (B, H, S, d)
+    kf, vf = (x.repeat_interleave(n_rep, 2).transpose(1, 2) for x in (k, v))
+
+    def split(x):
+        hi = _tf32(x)
+        return hi, _tf32_truncated(x - hi)
+
+    def products(a, b):  # a (.., m, 8) . b (.., 8, n): [small, small, big]
+        (ah, al), (bh, bl) = split(a), split(b)
+        return [ah @ bh] if passes == 1 else [al @ bh, ah @ bl, ah @ bh]
+
+    # k-step 2c + h takes columns 16c + 4t + 2h, + 1 for t = 0..3
+    steps = [[16 * c + 4 * t + 2 * h + e for t in range(4) for e in range(2)]
+             for c in range(d // 16) for h in range(2)]
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    m = torch.full((B, H, S, 1), -math.inf)
+    l_sum = torch.zeros((B, H, S, 1))
+    o = torch.zeros((B, H, S, d))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        big = small = torch.zeros((B, H, S, kt.shape[2]))
+        for cols in steps:
+            *lo, hi = products(qf[..., cols], kt[..., cols].transpose(-1, -2))
+            for part in lo:
+                small = small + part
+            big = big + hi
+        s = (big + small) * scale_log2
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + kt.shape[2])[None, :] > rows, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))  # finite: key 0 is in every row
+        corr, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        l_sum = l_sum * corr + p.sum(-1, keepdim=True)
+        pv = torch.zeros_like(o)
+        for j0 in range(0, kt.shape[2], 8):
+            for part in products(p[..., j0:j0 + 8], vt[:, :, j0:j0 + 8]):
+                pv = pv + part
+        o = torch.addcmul(pv, o, corr)
+        m = m_new
+    return (o / l_sum).transpose(1, 2)
+
+
+K9_F32_TILE = {128: 32, 64: 64, 32: 64}  # the f32 kernel's key tile by head dim
+
+
+@pytest.mark.parametrize("s,d,causal", [(1024, 128, True), (1000, 128, True), (1000, 128, False),
+                                        (129, 64, True), (33, 32, False)])
+def test_tf32x3_k9_holds_f32_accuracy(s, d, causal):
+    """Before any card time: the f32 K9's 3xTF32 arithmetic, at phi3's head
+    ratio (8 query / 2 KV heads), is within 1e-5 of the plain version (f32
+    products) and within the reference's 2e-4 of the JAX op: its Pallas
+    kernel in interpret mode where that masks what the port masks (causal,
+    or S a multiple of its block of 128), else its plain path (the Pallas
+    path lets zero-padded keys into a non-causal softmax)."""
+    q, k, v = _qkv(31 + s, 1, s, 8, 2, d)
+    got = _tf32x3_k9(_t(q), _t(k), _t(v), causal, K9_F32_TILE[d])
+    want = gqa_attention_ref(_t(q), _t(k), _t(v), causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    j_out = j_gqa_attention_op(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                               use_pallas=causal or s % 128 == 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_out), **ATTN_TOL)
+
+
+def test_one_tf32_pass_misses_the_reference_tolerance():
+    """Why the f32 K9 takes three TF32 products: one pass (hi . hi alone)
+    lies beyond the reference's 2e-4 at granite-like widths (S = 1,024,
+    d = 128, causal), where three passes hold 1e-5."""
+    q, k, v = (_t(x) for x in _qkv(31 + 1024, 1, 1024, 8, 2, 128))
+    want = gqa_attention_ref(q, k, v, causal=True)
+    one = _tf32x3_k9(q, k, v, True, K9_F32_TILE[128], passes=1)
+    assert (one - want).abs().max().item() > ATTN_TOL["atol"]
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(one, want, **ATTN_TOL)
+
+
 @pytest.mark.parametrize("b,f,d", [(64, 9, 16), (128, 27, 64), (100, 5, 32)])
 def test_interaction_matches_jax(b, f, d):
     z = np.random.default_rng(b + f).standard_normal((b, f, d)).astype(np.float32)

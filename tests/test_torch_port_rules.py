@@ -323,8 +323,8 @@ ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_flash_attention_
 ptxas info    : Function properties for _ZN51_GLOBAL__N__x_18_flash_attention_cu_y2wg28flash_attention_wgmma_kernelILi128EEEv14CUtensorMap_st
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 16 barriers
-ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_flash_attention_cu_y22flash_attention_kernelILi64EEEvPKfS2_' for 'sm_90a'
-ptxas info    : Function properties for _ZN51_GLOBAL__N__x_18_flash_attention_cu_y22flash_attention_kernelILi64EEEvPKfS2_
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_flash_attention_cu_y2tf29flash_attention_tf32x3_kernelILi64EEEvPKfS3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__x_18_flash_attention_cu_y2tf29flash_attention_tf32x3_kernelILi64EEEvPKfS3_
     8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 122 registers, used 1 barriers, 16 bytes smem, 464 bytes cmem[0]
 """
@@ -341,17 +341,22 @@ def test_smoke_reads_the_k9_build_log_and_sass():
     assert by_kernel == {
         ("flash_attention_wgmma_kernel", 128): dict(registers=168, static_smem_bytes=0,
                                                      spill_stores=0, spill_loads=0),
-        ("flash_attention_kernel", 64): dict(registers=122, static_smem_bytes=16,
-                                             spill_stores=4, spill_loads=12)}
+        ("flash_attention_tf32x3_kernel", 64): dict(registers=122, static_smem_bytes=16,
+                                                    spill_stores=4, spill_loads=12)}
     with pytest.raises(AssertionError):
         chip_smoke.k9_instance("_ZN2wg12other_kernelILi64EEEv")
     sass = ("\n\tcode for sm_90a\n\t\tFunction : fa_wgmma\n"
             "        /*0010*/  UTMALDG.4D [UR8], [UR16] ;\n"
             "        /*0020*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;\n"
             "        /*0030*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;\n"
-            "\n\t\tFunction : fa_f32\n        /*0010*/  FFMA R1, R2, R3, R1 ;\n")
-    assert chip_smoke.sass_ops(sass, chip_smoke.K9_SASS_OPS) == {
-        "fa_wgmma": {"HGMMA": 2, "UTMALDG": 1}, "fa_f32": {"HGMMA": 0, "UTMALDG": 0}}
+            "\n\t\tFunction : fa_f32\n        /*0010*/  FFMA R1, R2, R3, R1 ;\n"
+            "        /*0020*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n"
+            "        /*0030*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n")
+    ops = chip_smoke.K9_SASS_OPS + chip_smoke.K9_F32_SASS_OPS
+    tf32 = chip_smoke.K9_F32_SASS_OPS[0]
+    assert chip_smoke.sass_ops(sass, ops) == {
+        "fa_wgmma": {"HGMMA": 2, "UTMALDG": 1, tf32: 0},
+        "fa_f32": {"HGMMA": 0, "UTMALDG": 0, tf32: 1}}
 
 
 def test_serve_without_device_needs_the_card(no_cuda):

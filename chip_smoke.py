@@ -82,7 +82,7 @@ Phases, each of which asserts (any failure exits non-zero):
      the card (f32, TF32 off), each held against the same run on the CPU;
      then minicpm-2b at the full width of its CONFIG with its depth cut to
      24 layers (bf16, R=2 replicas, Adam, shadow EASGD every 5 iterations,
-     B=4 x S=2048 a replica): 2 warm-up and 10 timed iterations (median and
+     B=4 x S=2048 a replica): 2 warm-up and 6 timed iterations (median and
      spread, tokens/s, sync ms, peak memory, model FLOP utilisation), a
      profiled iteration's device idle share, a falling finite loss, and no
      K1-K9 launch in the training window; after its timed iterations, 3
@@ -237,7 +237,7 @@ MODE_SCRIPT = ((3, "fixed_rate"), (9, "shadow"))  # the sim's scripted handoffs
 LOCKDEP_ITERS, LOCKDEP_STALL_S = 8, 0.1
 LAUNCH_LOCK_SITES = ("backend._BUILD_LOCK", "backend._COUNT_LOCK")
 
-# the LM trainer: the launcher's reduced run (20 iterations, R=2 x B=4 x
+# the LM trainer: the launcher's reduced run (10 iterations, R=2 x B=4 x
 # S=64) per algorithm, card against CPU; then minicpm-2b's CONFIG widths
 # (d_model 2304, 36 MHA heads of 64, d_ff 5760, vocab 122,753 padded to
 # 122,880, tied, bf16) with its depth cut from 40 to 24 layers: 1.748 B
@@ -247,9 +247,9 @@ LAUNCH_LOCK_SITES = ("backend._BUILD_LOCK", "backend._COUNT_LOCK")
 # Adam 1e-3, shadow EASGD alpha 0.5 every 5 iterations, B=4 a replica x
 # S=2048 (two query chunks of 1024)
 LM_ALGOS = ("easgd", "ma", "bmuf", "gossip")
-LM_LAUNCH = ["--iters", "20", "--batch-size", "4", "--seq-len", "64"]
+LM_LAUNCH = ["--iters", "10", "--batch-size", "4", "--seq-len", "64"]
 LM_ARCH, LM_LAYERS, LM_R, LM_B, LM_S = "minicpm-2b", 24, 2, 4, 2048
-LM_WARM, LM_ITERS, LM_GAP, LM_LR = 2, 10, 5, 1e-3
+LM_WARM, LM_ITERS, LM_GAP, LM_LR = 2, 6, 5, 1e-3
 # the Markov stream's transition is (V, V) f32: over the full vocabulary it
 # would be 122,753^2 x 4 B = 60 GB, so the chain runs over the first 4,096
 # ids (64 MiB), valid ids of the full model
@@ -298,9 +298,14 @@ ROOFLINE_SLACK = 1.05
 # torch.profiler traces: the marker kernel (torch.cuda._sleep's) that opens
 # and closes the recorded run, its length, the card's clock for the pad
 # spins, and the pad before the run in each attempt (a trace that lost
-# device events is made again with the next)
+# device events is made again with the next). The profiler drops the first
+# device records of a window, whatever their time: the pad and the opening
+# marker of the LM training traces among them, however long the pad. So each
+# window opens with TRACE_SACRIFICE spins of SACRIFICE_CYCLES, shorter than
+# a marker, for it to drop instead.
 MARKER_KERNEL, MARKER_CYCLES, SPIN_HZ = "spin_kernel", 10_000, 1.98e9
 TRACE_PADS_S = (0.05, 0.25, 1.0)
+TRACE_SACRIFICE, SACRIFICE_CYCLES = 256, 1_000
 
 # the hand-written kernels' __global__ names, as the profiler reports them,
 # by the source (kernels/<source>/csrc/<source>.cu) that must build each; a
@@ -373,6 +378,38 @@ def time_ms(torch, fn, reps=20, warm=3):
     return start.elapsed_time(end) / reps
 
 
+class DeviceEvent:
+    """A device record of a trace, as the profiler's raw results give it,
+    with the attributes of a parsed event that the phases read (``name``,
+    ``device_type``, ``time_range`` in µs). Parsing every record of a
+    training iteration into events takes seconds; reading the device
+    records raw, a small part of that."""
+
+    __slots__ = ("name", "device_type", "time_range")
+
+    def __init__(self, record):
+        from torch.autograd.profiler_util import Interval
+
+        self.name, self.device_type = record.name(), record.device_type()
+        self.time_range = Interval(record.start_ns() / 1e3, record.end_ns() / 1e3)
+
+
+def device_events(prof):
+    """The device records of a finished profiler window."""
+    from torch.autograd import DeviceType
+
+    return [DeviceEvent(r) for r in prof.profiler.kineto_results.events()
+            if r.device_type() == DeviceType.CUDA]
+
+
+def marker_spans(dev):
+    """The time ranges of a trace's pad and marker spins, in order: the
+    sacrificial spins are shorter than half a marker."""
+    least_us = MARKER_CYCLES / SPIN_HZ * 1e6 / 2
+    return sorted((ev.time_range for ev in dev if MARKER_KERNEL in ev.name
+                   and ev.time_range.elapsed_us() >= least_us), key=lambda r: r.start)
+
+
 def device_kernels(events):
     """{kernel or copy name: (total device ms, count)} from torch.profiler events."""
     from torch.autograd import DeviceType
@@ -387,17 +424,15 @@ def device_kernels(events):
 
 def body_events(events):
     """The device events between the opening and the closing marker spin of
-    a trace (the last two spins), or None where either marker or every event
-    between them is missing. Both markers kept means that nothing between
-    them fell outside the trace's window: the profiler drops device events
-    whose time, on the card's clock, falls before the window opened, and
-    such runs lost a trace's first launches or all of them. Device events
-    outside the markers (the profiler's own) are left out."""
+    a trace (the last two marker-long spins), or None where either marker or
+    every event between them is missing. The profiler drops a window's first
+    records, so a kept opening marker (or the pad before it) means that no
+    record of the run was dropped. Device events outside the markers (the
+    profiler's own) are left out."""
     from torch.autograd import DeviceType
 
     dev = [ev for ev in events if ev.device_type == DeviceType.CUDA]
-    marks = sorted((ev.time_range for ev in dev if MARKER_KERNEL in ev.name),
-                   key=lambda r: r.start)
+    marks = marker_spans(dev)
     if len(marks) < 2:
         return None
     opened, closed = marks[-2].end, marks[-1].start
@@ -407,14 +442,21 @@ def body_events(events):
 
 
 def lost_summary(events):
-    """What a trace that was not kept held: its device events, its marker
-    spins, and the names of the device events that are not spins."""
+    """What a trace that was not kept held: its device events, its pad and
+    marker spins, its sacrificial spins, whether the closing marker is the
+    one lost (more of the other device events start after the last marker
+    kept than end before it) and the names of the device events that are
+    not spins."""
     from torch.autograd import DeviceType
 
     dev = [ev for ev in events if ev.device_type == DeviceType.CUDA]
     names = sorted({ev.name[:60] for ev in dev if MARKER_KERNEL not in ev.name})
-    return {"device_events": len(dev),
-            "marker_spins": sum(MARKER_KERNEL in ev.name for ev in dev),
+    marks = marker_spans(dev)
+    work = [ev.time_range for ev in dev if MARKER_KERNEL not in ev.name]
+    after = sum(r.start >= marks[-1].end for r in work) if marks else 0
+    return {"device_events": len(dev), "marker_spins": len(marks),
+            "sacrificial_spins": sum(MARKER_KERNEL in ev.name for ev in dev) - len(marks),
+            "closing_marker_lost": after > len(work) - after,
             "names": names[:8]}
 
 
@@ -423,11 +465,12 @@ def traced(torch, body, warm=True, host=False, check=None):
     run, and, if ``host``, the host's key averages), from a torch.profiler
     trace. ``body`` runs in the profiler's warm-up cycle (if ``warm``; its
     events are thrown away), then in the recorded one between two marker
-    spins, after a spin of the card as long as the attempt's pad. An attempt
-    whose trace lost device events (``body_events``, or ``check(events)``
-    false) is made again with a longer pad; where every attempt lost some,
-    the events are None and the caller times with CUDA events or reports the
-    figure as not measured."""
+    spins, after TRACE_SACRIFICE short spins and a spin of the card as long
+    as the attempt's pad. An attempt whose trace lost device events
+    (``body_events``, or ``check(events)`` false) is made again with a
+    longer pad, unless it lost its closing marker, which no pad before the
+    run brings back; where no attempt was kept, the events are None and the
+    caller times with CUDA events or reports the figure as not measured."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
@@ -435,7 +478,7 @@ def traced(torch, body, warm=True, host=False, check=None):
         kept, out = {}, None  # a lost attempt's result goes before the next run
 
         def ready(p):
-            kept["events"] = list(p.events())
+            kept["events"] = device_events(p)
             kept["host"] = list(p.key_averages()) if host else None
 
         torch.cuda.synchronize()
@@ -445,6 +488,9 @@ def traced(torch, body, warm=True, host=False, check=None):
                 body()
                 torch.cuda.synchronize()
             prof.step()
+            for _ in range(TRACE_SACRIFICE):
+                torch.cuda._sleep(SACRIFICE_CYCLES)
+            torch.cuda.synchronize()
             torch.cuda._sleep(int(pad_s * SPIN_HZ))
             torch.cuda._sleep(MARKER_CYCLES)
             torch.cuda.synchronize()  # the body may run on other streams
@@ -459,8 +505,10 @@ def traced(torch, body, warm=True, host=False, check=None):
         events = body_events(kept.get("events", []))
         if events is not None and (check is None or check(events)):
             return out, wall_ms, events, kept.get("host")
-        emit({"phase": "trace_lost_events", "attempt": attempt, "pad_s": pad_s,
-              **lost_summary(kept.get("events", []))})
+        lost = lost_summary(kept.get("events", []))
+        emit({"phase": "trace_lost_events", "attempt": attempt, "pad_s": pad_s, **lost})
+        if lost["closing_marker_lost"]:
+            break  # no pad before the run brings back its end
     return out, wall_ms, None, None
 
 

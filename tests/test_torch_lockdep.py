@@ -422,19 +422,27 @@ def _fixed_rate_cached_pipelined():
 
 
 def _shadow_straggler_policy():
+    # the numbers of test_torch_scheduler.py's live policy scenario (LIVE,
+    # LIVE_ITERS, one intra-op thread), whose replays show why a loaded host
+    # needs them
     policy = sched.StragglerPolicy(sched.PolicyConfig(
-        eps_floor_frac=0.5, readmit_frac=0.75, window_s=0.5, probation_s=0.1, min_active=2),
+        eps_floor_frac=0.5, readmit_frac=0.75, window_s=2.0, probation_s=0.1, min_active=2),
         n_slots=3)
     r = runners.ThreadedShadowRunner(
         CFG, sync.SyncConfig(algo="easgd", alpha=0.5, mode="shadow", gap=3), n_trainers=3,
-        batch_size=32, optimizer=optim.adagrad(0.02), sync_sleep_s=0.01, eps_window_s=0.25,
-        fault_spec=FaultSpec(straggler_sleep_s={2: 0.3}, straggler_until={2: 4}),
+        batch_size=32, optimizer=optim.adagrad(0.02), sync_sleep_s=0.01, eps_window_s=1.0,
+        fault_spec=FaultSpec(straggler_sleep_s={2: 1.0}, straggler_until={2: 3}),
         straggler_policy=policy, device="cpu")
     r.warmup()
-    out = r.run(200)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as there: the trainers are the parallelism
+    try:
+        out = r.run(400)
+    finally:
+        torch.set_num_threads(n_threads)
     kinds = [(e.kind, e.slot) for e in out["membership_events"]]
     assert kinds[:3] == [("leave", 2), ("join", 2), ("activate", 2)], kinds
-    assert out["iter_count"] == [200, 200, 200] and out["sync_count"] > 0
+    assert out["iter_count"] == [400, 400, 400] and out["sync_count"] > 0
     return out
 
 

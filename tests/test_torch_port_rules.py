@@ -318,6 +318,41 @@ def test_smoke_keeps_a_trace_only_with_its_body_bracketed(marks, kept):
         assert not chip_smoke.launched("embedding_bag_kernel", 2)(got)
 
 
+@pytest.mark.parametrize("dropped", range(8))
+def test_smoke_trace_loses_its_first_records_to_the_sacrifice(dropped):
+    """The profiler drops a window's first device records. A trace opens
+    with short sacrificial spins, then the pad and the opening marker: it is
+    kept while what was dropped lies before the opening marker, and never
+    on a sacrificial spin's word."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    import chip_smoke
+
+    def ev(name, start, end):
+        return SimpleNamespace(name=name, device_type=DeviceType.CUDA,
+                               time_range=SimpleNamespace(start=start, end=end,
+                                                          elapsed_us=lambda: end - start))
+
+    spin = f"at::cuda::{chip_smoke.MARKER_KERNEL}(long)"
+    sacrifice = [ev(spin, t, t + 0.5) for t in (0.0, 1.0, 2.0, 3.0)]
+    body = [ev("embedding_bag_kernel", 25, 40), ev("vectorized_elementwise_kernel", 45, 55)]
+    trace = (sacrifice + [ev(spin, 5, 15), ev(spin, 16, 21)] + body
+             + [ev(spin, 60, 65), ev("Activity Buffer", 70, 71)])
+    got = chip_smoke.body_events(trace[dropped:])
+    if dropped <= len(sacrifice) + 1:  # the sacrifice and the pad
+        assert got == body
+    else:
+        assert got is None
+        lost = chip_smoke.lost_summary(trace[dropped:])
+        assert lost["marker_spins"] == 1 and lost["sacrificial_spins"] == 0
+        assert not lost["closing_marker_lost"]  # a retry may keep the opening
+    lost = chip_smoke.lost_summary(trace[dropped:-2])  # the closing marker lost too
+    assert chip_smoke.body_events(trace[dropped:-2]) is None
+    assert lost["closing_marker_lost"] == (dropped <= len(sacrifice) + 1)  # a marker left
+
+
 K9_PTXAS_LOG = """\
 ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__x_18_flash_attention_cu_y2wg28flash_attention_wgmma_kernelILi128EEEv14CUtensorMap_st' for 'sm_90a'
 ptxas info    : Function properties for _ZN51_GLOBAL__N__x_18_flash_attention_cu_y2wg28flash_attention_wgmma_kernelILi128EEEv14CUtensorMap_st

@@ -23,13 +23,14 @@ jax = pytest.importorskip("jax")
 
 from repro import optim as joptim  # noqa: E402
 from repro.configs import dlrm_ctr as jcfg  # noqa: E402
+from repro.core import elp as jelp  # noqa: E402
 from repro.core import runners as jrunners  # noqa: E402
 from repro.core import scheduler as jsched  # noqa: E402
 from repro.core import sync as jsync  # noqa: E402
 from repro.data import ctr as jctr  # noqa: E402
 from repro_torch import interop, optim  # noqa: E402
 from repro_torch.configs import dlrm_ctr  # noqa: E402
-from repro_torch.core import runners, sync  # noqa: E402
+from repro_torch.core import elp, runners, sync  # noqa: E402
 from repro_torch.core import scheduler as sched  # noqa: E402
 from repro_torch.core.membership import FaultSpec  # noqa: E402
 from repro_torch.data import ctr  # noqa: E402
@@ -253,18 +254,132 @@ def test_sim_under_straggler_schedule_follows_jax(jax_stream, engine):
 # ThreadedShadowRunner with the policy live
 # ---------------------------------------------------------------------------
 
-def _threaded_auto(mode, iters=200, sleep=0.3, until=4):
+# The live scenario's numbers: slot 2 sleeps ``sleep`` s in each of its first
+# ``until`` iterations; ``eps_window_s`` is the busy-time meter's window and
+# ``window_s`` how long a breach must last before a demotion. On a loaded
+# host a healthy iteration runs for up to a second (its thread runnable or
+# on a core throughout), so the meter's window must hold several healthy
+# iterations, the policy's window must outlast the breach a healthy slot's
+# slowest pair of iterations leaves, and the straggle must outlast the
+# policy's window; the healthy trainers' ``LIVE_ITERS`` iterations (~8 ms each
+# on an idle host) must outlast the straggle, so that the cohort it is
+# judged against is still there. ``NARROW`` were the numbers before (with
+# 200 iterations), which a loaded host broke both ways (the replays below).
+LIVE = dict(sleep=1.0, until=3, eps_window_s=1.0, window_s=2.0)
+NARROW = dict(sleep=0.3, until=4, eps_window_s=0.25, window_s=0.5)
+LIVE_ITERS = 400
+REPLAY_DT, REPLAY_OBSERVE, REPLAY_HEALTHY_S = 0.001, 20, 0.02
+
+
+def _replay(elp_mod, sched_mod, numbers, mode, load, iters=LIVE_ITERS):
+    """The threaded runner's policy loop on a scripted clock of
+    REPLAY_DT-second steps: three trainers whose iterations take
+    REPLAY_HEALTHY_S (slot 2 ``sleep`` more in its first ``until``) plus
+    ``load[(slot, it)]`` seconds lost to the host, each ticking the busy-time
+    meter as it ends one; in fixed_rate every member waits at a barrier each
+    3 iterations, its busy clock still; the policy observes every
+    REPLAY_OBSERVE steps and its actions move the membership mask. Returns
+    the actions and the policy's transitions."""
+    meter = elp_mod.SlotEPS(3, window_s=numbers["eps_window_s"])
+    pol = sched_mod.StragglerPolicy(sched_mod.PolicyConfig(
+        eps_floor_frac=0.5, readmit_frac=0.75, window_s=numbers["window_s"], probation_s=0.1,
+        min_active=2), n_slots=3)
+
+    def length(s, k):
+        slept = numbers["sleep"] if s == 2 and k < numbers["until"] else 0.0
+        return REPLAY_HEALTHY_S + slept + load.get((s, k), 0.0)
+
+    active, done, parked = [True] * 3, [0] * 3, [False] * 3
+    left = [round(length(s, 0) / REPLAY_DT) for s in range(3)]
+    actions, step = [], 0
+    while min(done) < iters:
+        step += 1
+        for s in range(3):
+            if done[s] == iters or parked[s]:
+                continue
+            left[s] -= 1
+            if left[s] == 0:
+                meter.tick(s, length(s, done[s]))
+                meter.add(s, 32)
+                done[s] += 1
+                left[s] = round(length(s, done[s]) / REPLAY_DT)
+                parked[s] = mode == "fixed_rate" and active[s] and done[s] % 3 == 0
+        if all(p or not a or d == iters for p, a, d in zip(parked, active, done)):
+            parked = [False] * 3
+        if step % REPLAY_OBSERVE == 0:
+            alive = [d < iters for d in done]
+            for a in pol.observe(step * REPLAY_DT, meter.eps_by_slot(), list(active), alive):
+                active[a.slot] = a.kind == "readmit"
+                parked[a.slot] = False
+                actions.append((a.kind, a.slot))
+    return actions, list(pol.transitions)
+
+
+# Host load seen in loaded runs of the live test, as (slot, iteration):
+# seconds beyond the iteration's own time. A healthy slot's slowest pair of
+# iterations, placed mid-run (0.265 + 0.728 s under the suite's six workers,
+# shadow; 0.283 + 0.475 s, fixed_rate; 1.00 + 1.06 s beside sixteen spinning
+# processes), and a fixed_rate start where every trainer's first three
+# iterations were slow.
+LOADED = {
+    "healthy_pair": ("shadow", {(0, 200): 0.245, (0, 201): 0.708}),
+    "healthy_pair_fixed_rate": ("fixed_rate", {(0, 200): 0.263, (0, 201): 0.455}),
+    "healthy_pair_oversubscribed": ("shadow", {(0, 200): 0.98, (0, 201): 1.04}),
+    "slow_start_fixed_rate": ("fixed_rate", {
+        (0, 0): 0.517, (0, 1): 0.081, (0, 2): 0.143, (1, 0): 0.165, (1, 1): 0.394,
+        (1, 2): 0.07, (2, 0): 0.004, (2, 1): 0.14, (2, 2): 0.322}),
+}
+
+
+@pytest.mark.parametrize("numbers", ["LIVE", "NARROW"])
+@pytest.mark.parametrize("case", sorted(LOADED))
+def test_loaded_host_replay_follows_jax(case, numbers):
+    """The policy and the busy-time meter on a scripted loaded host act as
+    the JAX package's do, transition for transition; under LIVE the
+    straggler alone is demoted and re-admitted, while NARROW demotes a
+    healthy slot after its slow pair, or misses the straggler when the
+    trainers start slow (the meter's 0.25 s window reads one iteration as
+    128 examples/s, the healthy slots' two as 256: no reading falls below
+    half of 256)."""
+    mode, load = LOADED[case]
+    nums = globals()[numbers]
+    port = _replay(elp, sched, nums, mode, load)
+    assert port == _replay(jelp, jsched, nums, mode, load)
+    actions = port[0]
+    if numbers == "LIVE":
+        assert actions == [("demote", 2), ("readmit", 2)], port
+    elif case.startswith("healthy_pair"):
+        assert ("demote", 0) in actions, port
+    else:
+        assert ("demote", 2) not in actions, port
+
+
+@pytest.fixture
+def one_intra_op_thread():
+    """The trainer threads are the live run's parallelism: each runs its
+    ops on its own thread. With a team of two a trainer, a loaded host
+    stretched healthy iterations to as much as 1.3 s, 0.30-0.35 s of it on
+    the trainer's own core (0.005-0.02 s in a fast one); with one, none."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _threaded_auto(mode):
     # the straggle must outlast the policy's window (the sleep dominates
-    # compute) while a healthy slot's slowest iteration on a loaded host
-    # stays inside it, and the run must go on long enough after the straggle
+    # compute) while a healthy slot's slowest iterations on a loaded host
+    # stay inside it, and the run must go on long enough after the straggle
     # for the busy-clock meter to refill (eps_window_s) and probation to pass
     policy = sched.StragglerPolicy(sched.PolicyConfig(
-        eps_floor_frac=0.5, readmit_frac=0.75, window_s=0.5, probation_s=0.1, min_active=2),
-        n_slots=3)
+        eps_floor_frac=0.5, readmit_frac=0.75, window_s=LIVE["window_s"], probation_s=0.1,
+        min_active=2), n_slots=3)
     r = runners.ThreadedShadowRunner(
         CFG, sync.SyncConfig(algo="easgd", alpha=0.5, mode=mode, gap=3), n_trainers=3,
-        batch_size=32, optimizer=optim.adagrad(0.02), sync_sleep_s=0.01, eps_window_s=0.25,
-        fault_spec=FaultSpec(straggler_sleep_s={2: sleep}, straggler_until={2: until}),
+        batch_size=32, optimizer=optim.adagrad(0.02), sync_sleep_s=0.01,
+        eps_window_s=LIVE["eps_window_s"],
+        fault_spec=FaultSpec(straggler_sleep_s={2: LIVE["sleep"]},
+                             straggler_until={2: LIVE["until"]}),
         straggler_policy=policy, device="cpu")
     r.warmup()
     admit = r._admit_slot
@@ -275,14 +390,14 @@ def _threaded_auto(mode, iters=200, sleep=0.3, until=4):
         admit(slot, reason)
 
     r._admit_slot = spy
-    return r, r.run(iters)
+    return r, r.run(LIVE_ITERS)
 
 
 @pytest.mark.timeout(120)
 @pytest.mark.parametrize("mode", ["shadow", "fixed_rate"])
-def test_threaded_policy_demotes_then_readmits(mode):
+def test_threaded_policy_demotes_then_readmits(mode, one_intra_op_thread):
     r, out = _threaded_auto(mode)
-    assert out["iter_count"] == [200, 200, 200]
+    assert out["iter_count"] == [LIVE_ITERS] * 3
     kinds = [(e.kind, e.slot) for e in out["membership_events"]]
     assert kinds[:3] == [("leave", 2), ("join", 2), ("activate", 2)], out["membership_events"]
     assert "straggler" in out["membership_events"][0].reason
@@ -293,7 +408,8 @@ def test_threaded_policy_demotes_then_readmits(mode):
     # decided on the shadow or monitor thread, carried out by the slot's
     # trainer (a loaded host may see the slot demoted and re-admitted twice)
     assert r.admitted_on and set(r.admitted_on) == {(2, "trainer-2")}, r.admitted_on
-    assert r.slot_eps.busy(2) >= 4 * 0.3  # the slept prefix is in its busy time
+    # the slept prefix is in its busy time
+    assert r.slot_eps.busy(2) >= LIVE["until"] * LIVE["sleep"]
     if mode == "fixed_rate":
         assert out["sync_count"] > 0 and out["sync_rounds"] == 0  # no shadow thread
 

@@ -337,6 +337,10 @@ WAIVER_JUSTIFICATIONS: Dict[str, str] = {
     "launched on the tier, which a migration waits on",
     "runners.HogwildSim.run.gid_memo": "guarded-by: gid_lock; the sim's host ids shared by "
     "the prefetch horizon, the stager and the cached step",
+    "tracing.Collector._agg": "guarded-by: _lock; the spans' counts and seconds by name, "
+    "added to on the training thread and on the autograd engine's (a backward span)",
+    "tracing.Collector._pending": "guarded-by: _lock; the unresolved event pairs, appended "
+    "as spans close on either thread; query() and elapsed_time() run outside the lock",
 }
 
 # Fields whose contract in the port differs from their counterpart's in the

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
+from repro_torch import tracing
 from repro_torch import tree as T
 from repro_torch.core import algorithms, streams
 from repro_torch.core import sync as S
@@ -208,23 +209,27 @@ class HogwildSim:
         F, m, d = cfg.n_sparse_features, cfg.multi_hot, cfg.embedding_dim
         idx = batch["sparse"].reshape(-1, F, m)
         if pooled is None:
-            pooled = emb.lookup(st.emb_state, spec, idx) if store is None else store.lookup(gids)
+            with tracing.span("sim.lookup"):
+                pooled = (emb.lookup(st.emb_state, spec, idx) if store is None
+                          else store.lookup(gids))
         elif store is not None:
             store.count(gids)
         pooled = pooled.reshape(self.R, self.M, self.B, F, d)
-        w = self.flat.unpack_stack(st.w_stack) if self.engine == "flat" else st.w_stack
-        w, st.opt_stack, loss, g_pooled = self._dense_core(w, st.opt_stack, pooled, batch,
-                                                           active)
-        st.w_stack = self.flat.pack_stack(w) if self.engine == "flat" else w
+        with tracing.span("sim.dense"):
+            w = self.flat.unpack_stack(st.w_stack) if self.engine == "flat" else st.w_stack
+            w, st.opt_stack, loss, g_pooled = self._dense_core(w, st.opt_stack, pooled, batch,
+                                                               active)
+            st.w_stack = self.flat.pack_stack(w) if self.engine == "flat" else w
         if on_dense is not None:
             on_dense()
         # Hogwild on the single embedding copy: one fused, in-place
         # scatter-Adagrad launch with every trainer's and thread's gradient.
-        if store is None:
-            emb.sparse_adagrad_update_fused(st.emb_state, spec, idx,
-                                            g_pooled.reshape(-1, F, d), self.emb_lr)
-        else:  # the same (R*M*B*F, m) / (R*M*B*F, d) flattening
-            store.update(gids.reshape(-1, m), g_pooled.reshape(-1, d), self.emb_lr)
+        with tracing.span("sim.update"):
+            if store is None:
+                emb.sparse_adagrad_update_fused(st.emb_state, spec, idx,
+                                                g_pooled.reshape(-1, F, d), self.emb_lr)
+            else:  # the same (R*M*B*F, m) / (R*M*B*F, d) flattening
+                store.update(gids.reshape(-1, m), g_pooled.reshape(-1, d), self.emb_lr)
         return loss
 
     # -- state --------------------------------------------------------------
@@ -265,26 +270,29 @@ class HogwildSim:
         gather for EASGD and Gossip, the mean plane for MA and BMUF), a deep
         copy of the stack on the pytree engine. ``active`` is the membership
         mask at launch: a dead slot is never snapshotted."""
-        if self.engine == "flat":
-            return self.algo.launch_snapshot_flat(st.w_stack, mask, self.sync_cfg, self.flat,
-                                                  st.algo_state, active=active)
-        return T.map(torch.clone, st.w_stack)
+        with tracing.span("sim.launch"):
+            if self.engine == "flat":
+                return self.algo.launch_snapshot_flat(st.w_stack, mask, self.sync_cfg, self.flat,
+                                                      st.algo_state, active=active)
+            return T.map(torch.clone, st.w_stack)
 
     def _apply_sync(self, st: SimState, snap, mask, active=None, launch_active=None) -> SimState:
         """Land one sync. ``snap=None``: fixed rate, sync against the current
         state; ``mask=None``: every replica fired; ``active`` /
         ``launch_active``: the membership masks at landing / launch (None
         when the run is not elastic)."""
-        if self.engine == "flat":
-            st.w_stack, st.algo_state = self.algo.land_flat(
-                st.w_stack, st.algo_state, snap, mask, self.sync_cfg, self.flat, active=active)
-        elif active is None:
-            st.w_stack, st.algo_state = self.algo.land(
-                st.w_stack, st.algo_state, snap, mask, self.sync_cfg)
-        else:
-            st.w_stack, st.algo_state = self.algo.land_elastic(
-                st.w_stack, st.algo_state, snap, mask, active, self.sync_cfg,
-                launch_active=launch_active)
+        with tracing.span("sim.land"):
+            if self.engine == "flat":
+                st.w_stack, st.algo_state = self.algo.land_flat(
+                    st.w_stack, st.algo_state, snap, mask, self.sync_cfg, self.flat,
+                    active=active)
+            elif active is None:
+                st.w_stack, st.algo_state = self.algo.land(
+                    st.w_stack, st.algo_state, snap, mask, self.sync_cfg)
+            else:
+                st.w_stack, st.algo_state = self.algo.land_elastic(
+                    st.w_stack, st.algo_state, snap, mask, active, self.sync_cfg,
+                    launch_active=launch_active)
         return st
 
     def _apply_membership_event(self, st: SimState, kind: str, slot: int,
@@ -423,97 +431,102 @@ class HogwildSim:
         last_global_sync = fr_anchor = shadow_base = 0
         try:
             for t in range(start, start + n_iters):
-                if elastic and self.schedule is not None:
-                    # a StragglerSchedule yields (kind, slot, reason)
-                    evs = list(self.schedule.events_at(t))
-                    if evs and pipe is not None:
-                        pipe.drain()  # staged lookups predate the event
-                    for ev in evs:
-                        st = self._apply_membership_event(st, *ev)
-                active = self.membership.active_mask() if elastic else None
-                if msched is not None:
-                    mode = msched.mode_at(t)
-                    if mode != cur_mode:
-                        # the handoff, at the iteration boundary: staged
-                        # lookups predate it
-                        if pipe is not None:
-                            pipe.drain()
-                        if mode == "fixed_rate":
-                            # shadow -> fixed_rate: drop the in-flight launch
-                            # and run one foreground catch-up sync, so stale
-                            # deltas merge before the first barrier step
-                            pending = None
-                            if active is None or active.any():
-                                st = self._apply_sync(st, None, None, active=active)
-                                sync_count += self.R if active is None else int(active.sum())
-                            last_global_sync = fr_anchor = t
-                        else:
-                            # fixed_rate -> shadow: the shadow clocks resume
-                            # from the last global sync
-                            shadow_base = last_global_sync
-                        mode_events.append((t, cur_mode, mode))
-                        cur_mode = mode
-                staged = prep = None
-                if pipe is not None:
-                    staged, prep = pipe.consume(t)
-                batch = streams.consume(prep["batch"]) if prep is not None else self.make_batch(t)
-                pooled = (streams.consume(staged[0])
-                          if staged is not None and staged[0] is not None else None)
-                gids = None
-                if store is not None:
-                    # one prefetch round covering [t, t + K) at the boundary
-                    if la:
-                        store.prefetch([_gids(t + j) for j in range(la)])
-                    gids = _gids(t)
-                    with gid_lock:
-                        for k in [k for k in gid_memo if k <= t]:
-                            del gid_memo[k]
-                loss = self._train_iter(
-                    st, batch, active, store, gids, pooled,
-                    on_dense=(lambda: pipe.stage(t)) if pipe is not None else None)
-                # float()/numpy() synchronise, as float() does in the reference
-                if elastic:
-                    lv = loss.detach().cpu().numpy()
-                    replica_losses.append(lv)
-                    # an all-dead cohort trains nothing: nan, not a mean of []
-                    losses.append(float(lv[active].mean()) if active.any() else float("nan"))
-                    examples += int(active.sum()) * self.M * self.B
-                else:
-                    losses.append(float(loss))
-                    examples += self.R * self.M * self.B
-                if cur_mode == "fixed_rate":
-                    if (t + 1 - fr_anchor) % sc.gap == 0 and (active is None or active.any()):
-                        st = self._apply_sync(st, None, None, active=active)
-                        sync_count += self.R if active is None else int(active.sum())
-                        last_global_sync = t + 1
-                else:  # shadow: land first, then launch
-                    if pending is not None and t + 1 >= pending[0]:
-                        _, snap, mask, launch_active = pending
-                        # the landing reads the CURRENT membership: a slot that
-                        # died in flight is skipped (an all-dead cohort drops it)
-                        if active is None or active.any():
-                            st = self._apply_sync(st, snap, mask, active=active,
-                                                  launch_active=launch_active)
-                            sync_count += int(mask.sum())
-                        pending = None
-                    if pending is None:
-                        mask = self._shadow_schedule(t + 1 - shadow_base)
-                        if elastic:
-                            mask = mask & active  # a dead slot's clock never fires
-                        if mask.any():
-                            if sc.delay == 0:
-                                # lands this iteration; no training step
-                                # intervenes, so the pytree engine needs no
-                                # deep copy
-                                snap = (self._launch_snapshot(st, mask, active)
-                                        if self.engine == "flat" else st.w_stack)
-                                st = self._apply_sync(st, snap, mask, active=active,
-                                                      launch_active=active)
-                                sync_count += int(mask.sum())
+                with tracing.span("sim.iter"):
+                    if elastic and self.schedule is not None:
+                        # a StragglerSchedule yields (kind, slot, reason)
+                        evs = list(self.schedule.events_at(t))
+                        if evs and pipe is not None:
+                            pipe.drain()  # staged lookups predate the event
+                        for ev in evs:
+                            st = self._apply_membership_event(st, *ev)
+                    active = self.membership.active_mask() if elastic else None
+                    if msched is not None:
+                        mode = msched.mode_at(t)
+                        if mode != cur_mode:
+                            # the handoff, at the iteration boundary: staged
+                            # lookups predate it
+                            if pipe is not None:
+                                pipe.drain()
+                            if mode == "fixed_rate":
+                                # shadow -> fixed_rate: drop the in-flight launch
+                                # and run one foreground catch-up sync, so stale
+                                # deltas merge before the first barrier step
+                                pending = None
+                                if active is None or active.any():
+                                    st = self._apply_sync(st, None, None, active=active)
+                                    sync_count += self.R if active is None else int(active.sum())
+                                last_global_sync = fr_anchor = t
                             else:
-                                pending = (t + 1 + sc.delay,
-                                           self._launch_snapshot(st, mask, active), mask, active)
-                st.step = t + 1
+                                # fixed_rate -> shadow: the shadow clocks resume
+                                # from the last global sync
+                                shadow_base = last_global_sync
+                            mode_events.append((t, cur_mode, mode))
+                            cur_mode = mode
+                    staged = prep = None
+                    if pipe is not None:
+                        staged, prep = pipe.consume(t)
+                    batch = (streams.consume(prep["batch"]) if prep is not None
+                             else self.make_batch(t))
+                    pooled = (streams.consume(staged[0])
+                              if staged is not None and staged[0] is not None else None)
+                    gids = None
+                    if store is not None:
+                        # one prefetch round covering [t, t + K) at the boundary
+                        if la:
+                            store.prefetch([_gids(t + j) for j in range(la)])
+                        gids = _gids(t)
+                        with gid_lock:
+                            for k in [k for k in gid_memo if k <= t]:
+                                del gid_memo[k]
+                    loss = self._train_iter(
+                        st, batch, active, store, gids, pooled,
+                        on_dense=(lambda: pipe.stage(t)) if pipe is not None else None)
+                    # float()/numpy() synchronise, as float() does in the reference
+                    if elastic:
+                        with tracing.span("sim.loss_wait"):
+                            lv = loss.detach().cpu().numpy()
+                        replica_losses.append(lv)
+                        # an all-dead cohort trains nothing: nan, not a mean of []
+                        losses.append(float(lv[active].mean()) if active.any() else float("nan"))
+                        examples += int(active.sum()) * self.M * self.B
+                    else:
+                        with tracing.span("sim.loss_wait"):
+                            losses.append(float(loss))
+                        examples += self.R * self.M * self.B
+                    if cur_mode == "fixed_rate":
+                        if (t + 1 - fr_anchor) % sc.gap == 0 and (active is None or active.any()):
+                            st = self._apply_sync(st, None, None, active=active)
+                            sync_count += self.R if active is None else int(active.sum())
+                            last_global_sync = t + 1
+                    else:  # shadow: land first, then launch
+                        if pending is not None and t + 1 >= pending[0]:
+                            _, snap, mask, launch_active = pending
+                            # the landing reads the CURRENT membership: a slot that
+                            # died in flight is skipped (an all-dead cohort drops it)
+                            if active is None or active.any():
+                                st = self._apply_sync(st, snap, mask, active=active,
+                                                      launch_active=launch_active)
+                                sync_count += int(mask.sum())
+                            pending = None
+                        if pending is None:
+                            mask = self._shadow_schedule(t + 1 - shadow_base)
+                            if elastic:
+                                mask = mask & active  # a dead slot's clock never fires
+                            if mask.any():
+                                if sc.delay == 0:
+                                    # lands this iteration; no training step
+                                    # intervenes, so the pytree engine needs no
+                                    # deep copy
+                                    snap = (self._launch_snapshot(st, mask, active)
+                                            if self.engine == "flat" else st.w_stack)
+                                    st = self._apply_sync(st, snap, mask, active=active,
+                                                          launch_active=active)
+                                    sync_count += int(mask.sum())
+                                else:
+                                    pending = (t + 1 + sc.delay,
+                                               self._launch_snapshot(st, mask, active), mask,
+                                               active)
+                    st.step = t + 1
                 if on_iter:
                     on_iter(t, losses[-1])
                 if log_every and (t + 1) % log_every == 0:

@@ -45,7 +45,7 @@ from typing import Any, Callable, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch import optim
+from repro_torch import optim, tracing
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import algorithms
@@ -201,29 +201,32 @@ def make_train_step(
 
     def one(params, opt_state, batch) -> torch.Tensor:
         live = T.map(lambda a: a.detach().requires_grad_(), params)
-        grads, loss = _accum_grads(loss_fn, live, batch, n_microbatches, gdt)
+        with tracing.span("train.fwd_bwd"):
+            grads, loss = _accum_grads(loss_fn, live, batch, n_microbatches, gdt)
         del live
         # on a mesh each gradient takes its parameter's placements: an
         # all-reduce where it is replicated, FSDP's reduce-scatter where sharded
         grads = [settle(g, p.placements) if isinstance(g, DTensor) else g
                  for g, p in zip(T.leaves(grads), T.leaves(params))]
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("train.optim"):
             optim.update_in_place(opt, params, opt_state, grads)
         return loss
 
     if mode == "shadow":
         def train_step(params, opt_state, batch):
-            if on_mesh(params):
-                return params, opt_state, _shadow_on_mesh(one, params, opt_state, batch)
-            R = T.leaves(params)[0].shape[0]
-            losses = [one(S.tree_slice(params, r), S.tree_slice(opt_state, r),
-                          S.tree_slice(batch, r)) for r in range(R)]
-            return params, opt_state, torch.stack(losses)
+            with tracing.span("train.step"):
+                if on_mesh(params):
+                    return params, opt_state, _shadow_on_mesh(one, params, opt_state, batch)
+                R = T.leaves(params)[0].shape[0]
+                losses = [one(S.tree_slice(params, r), S.tree_slice(opt_state, r),
+                              S.tree_slice(batch, r)) for r in range(R)]
+                return params, opt_state, torch.stack(losses)
 
         return train_step
 
     def train_step(params, opt_state, batch):
-        return params, opt_state, one(params, opt_state, batch)
+        with tracing.span("train.step"):
+            return params, opt_state, one(params, opt_state, batch)
 
     return train_step
 
@@ -251,8 +254,15 @@ def make_sync_step(cfg: ArchConfig, sync_cfg: S.SyncConfig) -> Callable:
     """The background program; it owns all cross-replica communication.
     ``sync_step(params_stack, algo_state) -> (params_stack, algo_state)``
     for every registered algorithm, ``algo_state`` from
-    ``algorithms.get(name).init_state(params, sync_cfg)``."""
-    return algorithms.get(sync_cfg.algo).make_sync_step(sync_cfg)
+    ``algorithms.get(name).init_state(params, sync_cfg)``; a call is the
+    span ``train.sync``."""
+    step = algorithms.get(sync_cfg.algo).make_sync_step(sync_cfg)
+
+    def sync_step(params_stack, algo_state):
+        with tracing.span("train.sync"):
+            return step(params_stack, algo_state)
+
+    return sync_step
 
 
 def make_prefill_step(cfg: ArchConfig, s_max: int) -> Callable:

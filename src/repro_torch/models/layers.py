@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from repro_torch import tracing
 from repro_torch.kernels.flash_attention.ops import gqa_attention_op
 from repro_torch.sharding.ctx import constrain, placed_like, reduce_partial, settle
 
@@ -192,14 +193,18 @@ def _chunked_attention(q, k, v, positions, cfg, causal: bool = True) -> torch.Te
     pass. Causal (and windowed, where the config has a window), or every key
     when not ``causal`` (then k and v may be longer than q: cross-attention).
     Plain torch, differentiable on every device; on a device mesh each rank
-    attends over its own batch rows and heads (``local_heads``)."""
+    attends over its own batch rows and heads (``local_heads``). A call is
+    the span ``attn.fwd`` and its backward pass, the chunks' recompute
+    included, the span ``attn.bwd`` (``tracing.py``)."""
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    q, k, v = _head_sharded(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep))
 
     def attend(q, k, v):
         return _attend(q, k, v, positions, cfg, causal)
 
-    return local_heads(attend, q, k, v)
+    with tracing.span("attn.fwd"):
+        out = local_heads(attend, *_head_sharded(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)))
+    tracing.backward_span("attn.bwd", out, (q, k, v))
+    return out
 
 
 def _head_sharded(q, k, v):

@@ -80,12 +80,19 @@ Phases, each of which asserts (any failure exits non-zero):
      serving weights are released (device memory before and after): the
      launcher's reduced minicpm-2b run under EASGD, MA, BMUF and Gossip on
      the card (f32, TF32 off), each held against the same run on the CPU;
+     then K9's training form (``attention_train_op``) at cell 9's shape
+     (4 x 2,048, 36 heads of 64, causal), at the benchmark's s512 (16 x
+     512) and at whisper-base's encoder (8 x 1,500 frames, every key): its
+     output and gradients within 1e-2 of the plain path in f32 (relative
+     norm), its forward and backward kernels timed beside their bounds;
      then minicpm-2b at the full width of its CONFIG with its depth cut to
      24 layers (bf16, R=2 replicas, Adam, shadow EASGD every 5 iterations,
      B=4 x S=2048 a replica): 2 warm-up and 6 timed iterations (median and
      spread, tokens/s, sync ms, peak memory, model FLOP utilisation), a
-     profiled iteration's device idle share, a falling finite loss, and no
-     K1-K9 launch in the training window; after its timed iterations, 3
+     profiled iteration's device idle share, a falling finite loss, no
+     K1-K9 prefill launch in the training window and K9's training form
+     launched 2 x 24 x R times forward and 24 x R backward an iteration
+     of the warm-up and timed ones; after its timed iterations, 3
      more under full remat on its stacks, 3 under remat_policy="save_comm"
      (a selective checkpoint keeping each unit's attention and FFN outputs)
      and 3 with parallel_block (PaLM's block on the same weights), each
@@ -118,7 +125,8 @@ Phases, each of which asserts (any failure exits non-zero):
      x 1,500 frames, 8 heads of 64, every key), served to 32 clips of bf16
      frames (5 timed prefills, 63 decode steps, exactly 12 K9 launches a
      prefill, profiled) and trained as phase 8 trains minicpm-2b (R=2 x B=8
-     clips of 1,500 frames and 448 tokens; no K1-K9 launch); then, the
+     clips of 1,500 frames and 448 tokens; no K1-K9 prefill launch, the
+     self-attention on K9's training form); then, the
      weights released (device memory before and after), llava-next-34b at
      full width, all 60 layers (cell 14: 68.88 GB of bf16 weights drawn on
      the card), K9 timed at its prefill's shape (B=4 x 3,136, 56 heads on 8
@@ -131,7 +139,8 @@ Phases, each of which asserts (any failure exits non-zero):
      ``param_count`` beside it, asserted equal to the parameters drawn, as
      every cell's set-up line asserts;
  11. the dry run's roofline (``launch/dryrun.py``, traced on the host at
-     each cell's shape, K9 counted as the card runs it) beside the measured
+     each cell's shape, K9 and its training form counted as the card runs
+     them) beside the measured
      times of cell 4's and cell 14's prefills and cell 9's shadow step and
      EASGD sync step, with the predicted and measured peak memory; no
      bound may exceed 1.05 times its measured time;
@@ -205,6 +214,15 @@ ATTN_CASES = ((1, 128, 2, 2, 64, True), (1, 128, 2, 2, 64, False), (1, 100, 2, 2
 # the f32 kernel's second timed shape: whisper-base's encoder layout (32
 # clips of 1,500 frames, 8/8 heads of 64, every key)
 ATTN_F32_WHISPER = (32, 1500, 8, 8, 64, False)
+# K9's training form against the plain path in f32 on the same bf16 inputs,
+# (B, S, H, KV heads, d, causal): cell 9's shape (minicpm-2b, 4 x 2,048, 36
+# heads of 64, causal), the benchmark's s512 traffic (16 x 512) and
+# whisper-base's encoder as cell 13 trains it (8 clips of 1,500 frames,
+# every key); within 1e-2 of it in the relative norm, as the card tests hold
+ATTN_TRAIN_CASES = {"cell9_s2048": (4, 2048, 36, 36, 64, True),
+                    "s512": (16, 512, 36, 36, 64, True),
+                    "whisper_encoder": (8, 1500, 8, 8, 64, False)}
+ATTN_TRAIN_REL_NORM = 1e-2
 # the tiered cache at full width: the sim's hot tier (1,048,576 rows, 537 MB
 # of table + acc, 11.8% of the rows) holds a horizon of three batches (one
 # names ~131,000 rows); the threaded runner's, a PS each
@@ -327,8 +345,13 @@ DEVICE_NAMES_BY_SOURCE = {
     "flash_attention": {"flash_attention": "flash_attention_wgmma_kernel",
                         "flash_attention_f32": "flash_attention_tf32x3_kernel"},
 }
-# what the K9 kernels' SASS must hold (patterns): the bf16 kernel's
-# tensor-core products and TMA loads, the f32 kernel's TF32 products
+# the training form's backward kernels (K9's source, head dims 64 and 128);
+# its forward is the bf16 kernel above, with the log-sum-exp written
+K9_BWD_KERNELS = ("flash_attention_bwd_delta_kernel", "flash_attention_bwd_dkdv_kernel",
+                  "flash_attention_bwd_dq_kernel")
+# what the K9 kernels' SASS must hold (patterns): the bf16 kernel's (and the
+# backward's two product kernels') tensor-core products and TMA loads, the
+# f32 kernel's TF32 products
 K9_SASS_OPS = ("HGMMA", "UTMALDG")
 K9_F32_SASS_OPS = (r"HMMA\S*\.TF32",)
 KERNELS = tuple(DEVICE_NAMES_BY_SOURCE)
@@ -1079,6 +1102,112 @@ def check_attention(torch, q, k, v, causal, mem_rate, timed=False, by_row=False)
     return out
 
 
+def kernel_split(torch, fn, reps=10):
+    """(device ms a call of ``fn``, {kernel: device ms a call}) from the
+    profiler; event-timed, with no split (None), where every trace lost
+    events."""
+    by_name = device_ms(torch, fn, reps)
+    if by_name is None:
+        return event_ms(torch, fn, reps), None
+    return (sum(t for t, _ in by_name.values()) / reps,
+            {n[:60]: t / reps for n, (t, _) in by_name.items()})
+
+
+def check_attention_train(torch, mem_rate):
+    """Phase 3, K9's training form (``attention_train_op``): at each of
+    ATTN_TRAIN_CASES' shapes, one call forward and backward (one launch of
+    each) and its output and the gradients of q, k and v held against the
+    plain path (``layers._sdpa_block``, KV heads repeated) in f32 on the
+    same bf16 inputs, a batch row at a time, within ATTN_TRAIN_REL_NORM in
+    the relative norm; then the forward kernel and the backward's kernels
+    (delta, dK/dV, dQ) timed on the device beside their bounds
+    (``ops._train_work``, as the dry run counts them: the forward's two
+    products over the (causal) pairs and the backward's five at bf16's
+    rate, or their operands' bytes), and the Function's forward and
+    backward and the plain path's (``layers._attend``, the training form
+    they replace) event-timed. Returns the forward's and the backward's
+    table rows, cell 9's shape their headline."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import (_train_work, attention_train_bwd,
+                                                          attention_train_op)
+    from repro_torch.models import layers
+
+    cfg = get_config(LM_ARCH)  # no window
+    gen = torch.Generator().manual_seed(30)
+    source = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+    rows = {"flash_attention_train_fwd": dict(name="flash_attention_train_fwd", route="cuda",
+                                              source=source, replaces=None, by_case={}),
+            "flash_attention_train_bwd": dict(name="flash_attention_train_bwd", route="cuda",
+                                              source=source, replaces=None, by_case={})}
+    for case, (b, s, h, kv, d, causal) in ATTN_TRAIN_CASES.items():
+        q = torch.randn((b, s, h, d), generator=gen).to("cuda", torch.bfloat16)
+        k, v = (torch.randn((b, s, kv, d), generator=gen).to("cuda", torch.bfloat16)
+                for _ in range(2))
+        dout = torch.randn((b, s, h, d), generator=gen).to("cuda", torch.bfloat16)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        before = (attention_train_op.launches, attention_train_bwd.launches)
+        out = attention_train_op(qg, kg, vg, causal=causal)
+        out.backward(dout)
+        assert (attention_train_op.launches - before[0],
+                attention_train_bwd.launches - before[1]) == (1, 1), case
+        got = (out.detach(), qg.grad, kg.grad, vg.grad)
+        pos = torch.arange(s, device="cuda")
+        mask = pos[:, None] >= pos[None, :] if causal else None
+        num, den = [0.0] * 4, [0.0] * 4
+        for i in range(b):
+            x = [t[i:i + 1].float().requires_grad_() for t in (q, k, v)]
+            want = layers._sdpa_block(x[0], layers._repeat_kv(x[1], h // kv),
+                                      layers._repeat_kv(x[2], h // kv), mask, d ** -0.5)
+            want.backward(dout[i:i + 1].float())
+            for j, w in enumerate((want.detach(), *(t.grad for t in x))):
+                num[j] += (got[j][i:i + 1].float() - w).norm().item() ** 2
+                den[j] += w.norm().item() ** 2
+            del x, want
+        rel = {n: (num[j] / den[j]) ** 0.5 for j, n in enumerate(("out", "dq", "dk", "dv"))}
+        assert all(math.isfinite(e) and e <= ATTN_TRAIN_REL_NORM for e in rel.values()), \
+            (case, rel)
+        del out, got
+        o, lse = fa.flash_attention_train_fwd(q, k, v, causal=causal)
+        fwd_ms, _ = kernel_split(torch, lambda: fa.flash_attention_train_fwd(q, k, v,
+                                                                            causal=causal))
+        bwd_ms, bwd_split = kernel_split(
+            torch, lambda: fa.flash_attention_train_bwd(q, k, v, o, lse, dout, causal=causal))
+        fwd_bound, fwd_by = bound(*reversed(_train_work(q, k, causal, False)), mem_rate,
+                                  BF16_RATE)
+        bwd_bound, bwd_by = bound(*reversed(_train_work(q, k, causal, True)), mem_rate,
+                                  BF16_RATE)
+
+        def fused():
+            attention_train_op(qg, kg, vg, causal=causal).backward(dout)
+
+        def plain():
+            n_rep = h // kv
+            layers._attend(qg, layers._repeat_kv(kg, n_rep), layers._repeat_kv(vg, n_rep),
+                           pos, cfg, causal).backward(dout)
+
+        function_ms = time_ms(torch, fused, reps=5, warm=1)
+        plain_ms = time_ms(torch, plain, reps=3, warm=1)
+        shape = dict(shape=[b, s, h, d], kv_heads=kv, causal=causal)
+        emit({"phase": "kernel_check", "name": "attention_train", "cell": case, **shape,
+              "rel_norm_err": rel, "tol_rel_norm": ATTN_TRAIN_REL_NORM,
+              "fwd_ms": fwd_ms, "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+              "bwd_ms": bwd_ms, "bwd_kernels_ms": bwd_split, "bwd_bound_ms": bwd_bound,
+              "bwd_bound_by": bwd_by, "function_fwd_bwd_ms": function_ms,
+              "plain_fwd_bwd_ms": plain_ms})
+        rows["flash_attention_train_fwd"]["by_case"][case] = dict(
+            **shape, rel_norm_err=rel["out"], ms=fwd_ms, bound_ms=fwd_bound, bound_by=fwd_by,
+            function_fwd_bwd_ms=function_ms, plain_fwd_bwd_ms=plain_ms)
+        rows["flash_attention_train_bwd"]["by_case"][case] = dict(
+            **shape, rel_norm_err={n: rel[n] for n in ("dq", "dk", "dv")}, ms=bwd_ms,
+            kernels_ms=bwd_split, bound_ms=bwd_bound, bound_by=bwd_by)
+        del q, k, v, dout, qg, kg, vg, o, lse
+        torch.cuda.empty_cache()
+    for row in rows.values():  # cell 9's shape heads the row
+        row.update({kk: row["by_case"]["cell9_s2048"][kk] for kk in ("ms", "bound_ms", "bound_by")})
+    return rows
+
+
 def profiled(torch, fn, check=None, warm=True):
     """(fn's result, device time by kernel, wall time and device idle share
     of one call of ``fn``), from a torch.profiler trace of the device alone
@@ -1347,6 +1476,7 @@ def lm_train_phase(torch, all_ops, path_counts):
                   lambda n_par, tokens: 4 / 3 * (6 * n_par * tokens + attn),
                   "4/3 * (6 * params * tokens + 3 * 4 * R * B * heads * S^2 * head_dim"
                   " * layers) / (median s * BF16_RATE)", cut=f"depth 40 -> {LM_LAYERS}",
+                  attn_layers=cfg.n_layers,
                   after=lambda state, batches, opt: lm_variants(torch, cfg, state, batches, opt,
                                                                 all_ops, path_counts))
 
@@ -1472,7 +1602,7 @@ def lm_variants(torch, cfg, state, batches, opt, all_ops, path_counts):
     iterations each under full remat, remat_policy="save_comm" and
     parallel_block (the same weights, PaLM's block), no sync between; each
     run's ms an iteration, its peak memory (reset before it) and its
-    losses, every leaf finite, no K1-K9 launch. Full remat and save_comm
+    losses, every leaf finite, no K1-K9 prefill launch. Full remat and save_comm
     then take one more, counted iteration (``counted_iteration``): the
     policy must keep each layer's wo and w_down products, one a mixer and
     one an FFN, in every replica's forward pass, and the backward pass's
@@ -1537,7 +1667,9 @@ def lm_variants(torch, cfg, state, batches, opt, all_ops, path_counts):
 def roofline_phase(torch):
     """Phase 11: the dry run's count at the measured cells' shapes
     (``launch/dryrun.py``: the step built on fake structures and traced on
-    their meta twins, on the host; K9 counted as the card runs it), its
+    their meta twins, on the host; K9 counted as the card runs it: a
+    prefill's launch a layer, the training form's forward twice a layer and
+    replica, the unit's recompute among them, and its backward once), its
     roofline on the H100's data-sheet constants beside the measured time
     and peak memory of this run. Fails where a bound exceeds
     ROOFLINE_SLACK times the measured time: the count would be wrong."""
@@ -1556,7 +1688,7 @@ def roofline_phase(torch):
          lambda: dryrun.build(get_config(SERVE_ARCH), "cell4", one, shape_override=InputShape(
              "cell4", SERVE_PROMPT, SERVE_B, "prefill"))),
         ("cell 9 shadow step", "lm_train", lm["ms_per_iter_median"],
-         ROWS["lm_train_full_remat"]["peak_mem_GB"], 0,
+         ROWS["lm_train_full_remat"]["peak_mem_GB"], 3 * LM_LAYERS * LM_R,
          lambda: dryrun.build(cell9, "cell9", one, mode="shadow", optimizer="adam",
                               n_replicas=LM_R, n_microbatches=1, shape_override=InputShape(
                                   "cell9", LM_S, LM_R * LM_B, "train"))),
@@ -2151,13 +2283,17 @@ def vlm_audio_phase(torch, mem_rate, all_ops, path_counts):
 
 
 def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formula,
-                  batch=LM_B, seq=LM_S, extra=None, after=None, **setup):
+                  batch=LM_B, seq=LM_S, extra=None, after=None, attn_layers=None, **setup):
     """Cells 9, 10 and 13 trained: LM_R replicas of ``cfg`` at full width,
     Adam, shadow EASGD every LM_GAP iterations, ``batch`` x ``seq`` tokens a
     replica on the Markov stream over the first LM_STREAM_VOCAB ids (and
     ``extra(it)``'s inputs, (LM_R, batch, ...) each: whisper's frames);
     LM_WARM warm-up and LM_ITERS timed iterations, every leaf checked
-    finite after each, and one profiled iteration, with no K1-K9 launch.
+    finite after each, and one profiled iteration, with no K1-K9 prefill
+    launch. The training attention's kernels' launches are counted: with
+    ``attn_layers`` (self-attention layers that take them, every unit
+    recomputed) asserted 2 x layers x LM_R forward and layers x LM_R backward
+    an iteration.
     ``flops_of(params, tokens)`` gives the model FLOPs an iteration
     (``flops_formula`` says how); ``setup`` goes into the set-up line. A
     ``model_flops`` line gives ``roofline.analysis.model_flops_estimate``'s
@@ -2170,6 +2306,7 @@ def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formul
     from repro_torch.core.sync import SyncConfig
     from repro_torch.data import tokens as tok
     from repro_torch.configs.base import InputShape
+    from repro_torch.kernels.flash_attention.ops import attention_train_bwd, attention_train_op
     from repro_torch.models import transformer
     from repro_torch.roofline.analysis import model_flops_estimate
     from repro_torch.roofline.params import param_count
@@ -2216,6 +2353,7 @@ def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formul
         return bool(torch.stack([torch.isfinite(t).all() for t in leaves]).all())
 
     reset_counts(all_ops.values())
+    reset_counts((attention_train_op, attention_train_bwd))
     losses, iter_ms = [], []
     for it in range(LM_WARM + LM_ITERS):
         torch.cuda.synchronize()
@@ -2230,6 +2368,12 @@ def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formul
         losses.append(float(loss.mean()))
         assert all_finite(), f"a non-finite leaf after iteration {it}"
     peak = torch.cuda.max_memory_allocated()
+    # the training kernels' launches in the warm-up and timed iterations (a
+    # profiled run may be run again where its trace lost events)
+    trained = {"forward": attention_train_op.launches, "backward": attention_train_bwd.launches}
+    if attn_layers is not None:
+        n = attn_layers * LM_R * (LM_WARM + LM_ITERS)
+        assert trained == {"forward": 2 * n, "backward": n}, (trained, n)
     _, _, prof = profiled(torch, lambda: iteration(LM_WARM + LM_ITERS), warm=False)
     counts = path_counts[path] = {k: op.launches for k, op in all_ops.items()}
     assert not any(counts.values()), counts
@@ -2245,7 +2389,8 @@ def lm_train_cell(torch, cfg, path, all_ops, path_counts, flops_of, flops_formul
           "sync_ms": sync_ms, "loss_first": losses[0], "loss_last": losses[-1],
           "losses": losses, "all_leaves_finite_every_step": True, "peak_mem_GB": peak / 1e9,
           "model_flops_per_iter": flops, "mfu_formula": flops_formula,
-          "mfu": flops / (med / 1e3) / BF16_RATE, "launches": 0, "profile": prof})
+          "mfu": flops / (med / 1e3) / BF16_RATE, "launches": 0,
+          "attention_train_launches": trained, "profile": prof})
     counted = param_count(cfg)
     assert counted == n_par, (counted, n_par)
     shape = InputShape(path, seq, LM_R * batch, "train")
@@ -2453,17 +2598,20 @@ def sass_ops(sass, ops):
 
 def k9_instance(mangled):
     """(K9 __global__ name, head dim) of a mangled name."""
-    m = re.search(r"(flash_attention_(?:wgmma|tf32x3)_kernel)ILi(\d+)E", mangled)
-    assert m and m.group(1) in DEVICE_NAMES_BY_SOURCE["flash_attention"].values(), mangled
+    m = re.search(r"(flash_attention_(?:wgmma|tf32x3|bwd_delta|bwd_dkdv|bwd_dq)_kernel)ILi(\d+)E",
+                  mangled)
+    assert m and (m.group(1) in DEVICE_NAMES_BY_SOURCE["flash_attention"].values()
+                  or m.group(1) in K9_BWD_KERNELS), mangled
     return m.group(1), int(m.group(2))
 
 
 def k9_build_report(backend):
     """Phase 2, K9: each __global__'s registers, shared memory (static from
-    the build log, dynamic from the library) and spills, and the SASS of
-    both kernels; fails unless each head dim of the bf16 kernel holds wgmma
-    and TMA loads (K9_SASS_OPS), and each of the f32 kernel TF32 tensor-core
-    products (K9_F32_SASS_OPS) and no spill."""
+    the build log, dynamic from the library for the two forward kernels)
+    and spills, and the SASS of every kernel; fails unless each head dim of
+    the bf16 kernel (and of the training backward's dK/dV and dQ kernels, at
+    64 and 128) holds wgmma and TMA loads (K9_SASS_OPS), and each of the f32
+    kernel TF32 tensor-core products (K9_F32_SASS_OPS) and no spill."""
     import ctypes
 
     lib = backend.library_path("flash_attention")
@@ -2474,8 +2622,10 @@ def k9_build_report(backend):
     f32_spills = {}
     for mangled, info in sorted(report.items()):
         name, d = k9_instance(mangled)
+        forward = name in DEVICE_NAMES_BY_SOURCE["flash_attention"].values()
         emit({"phase": "build_k9", "kernel": name, "head_dim": d, **info,
-              "dynamic_smem_bytes": smem_fn(d, int(name == DEVICE_NAMES["flash_attention"]))})
+              "dynamic_smem_bytes": smem_fn(d, int(name == DEVICE_NAMES["flash_attention"]))
+              if forward else None})
         if name == DEVICE_NAMES["flash_attention_f32"]:
             f32_spills[d] = info["spill_stores"] + info["spill_loads"]
     assert f32_spills == {32: 0, 64: 0, 128: 0}, f"f32 K9 spill bytes by head dim: {f32_spills}"
@@ -2484,11 +2634,13 @@ def k9_build_report(backend):
     found = {DEVICE_NAMES["flash_attention"]: {}, DEVICE_NAMES["flash_attention_f32"]: {}}
     for fn, counts in sass_ops(sass, K9_SASS_OPS + ("UTMASTG",) + K9_F32_SASS_OPS).items():
         name, d = k9_instance(fn)
-        found[name][d] = counts
-    for name, ops in ((DEVICE_NAMES["flash_attention"], K9_SASS_OPS),
-                      (DEVICE_NAMES["flash_attention_f32"], K9_F32_SASS_OPS)):
+        found.setdefault(name, {})[d] = counts
+    for name, ops, dims in ((DEVICE_NAMES["flash_attention"], K9_SASS_OPS, [32, 64, 128]),
+                            (DEVICE_NAMES["flash_attention_f32"], K9_F32_SASS_OPS, [32, 64, 128]),
+                            (K9_BWD_KERNELS[1], K9_SASS_OPS, [64, 128]),
+                            (K9_BWD_KERNELS[2], K9_SASS_OPS, [64, 128])):
         emit({"phase": "build_k9_sass", "kernel": name, "by_head_dim": found[name]})
-        assert sorted(found[name]) == [32, 64, 128], f"{name} instances: {sorted(found[name])}"
+        assert sorted(found[name]) == dims, f"{name} instances: {sorted(found[name])}"
         for d, counts in found[name].items():
             assert all(counts[op] > 0 for op in ops), f"{name} d={d} SASS: {counts}"
 
@@ -3646,7 +3798,9 @@ def main() -> int:
     k9_row, k9_f32_row = serving_phase(torch, mem_rate, all_ops, path_counts)
     k9_row["launches"] = path_counts["serve_phi3"]["flash_attention"]
 
-    # 8 · the LM trainer
+    # 8 · K9's training form at the trainers' shapes, then the LM trainer
+    release(torch)
+    train_rows = check_attention_train(torch, mem_rate)
     lm_train_phase(torch, all_ops, path_counts)
 
     # 9 · the ssm, MoE and hybrid families
@@ -3691,6 +3845,14 @@ def main() -> int:
         row["launches_lm_train_mamba2"] = path_counts["lm_train_mamba2"][op]
         row["launches_lm_train_whisper"] = path_counts["lm_train_whisper"][op]
         row["launches_serve_mamba2"] = path_counts["serve_mamba2"][op]
+    # the training form's launches: cell 9's and cell 13's warm-up and timed
+    # iterations (the profiled one not counted)
+    for k, side in (("flash_attention_train_fwd", "forward"),
+                    ("flash_attention_train_bwd", "backward")):
+        train_rows[k]["launches_lm_train"] = ROWS["lm_train"]["attention_train_launches"][side]
+        train_rows[k]["launches_lm_train_whisper"] = \
+            ROWS["lm_train_whisper"]["attention_train_launches"][side]
+    rows.update(train_rows)
     emit({"kernels": [{k: v for k, v in row.items() if k != "tol"} for row in rows.values()]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -386,6 +386,8 @@ KERNEL_CALLS = frozenset(
         "gossip_round_op",
         "interaction_op",
         "gqa_attention_op",
+        "attention_train_op",
+        "attention_train_bwd",
         # PS shard device paths
         "shard_lookup",
         "shard_update",

@@ -45,7 +45,10 @@
 //     layout, and one TMA store per box writes them out; TMA clips rows >= S.
 // Key tiles wholly above the diagonal are never loaded (the TPU kernel's
 // pl.when), and the grid runs the heaviest causal query tiles first, for
-// every (b, h), so the short tiles fill the tail.
+// every (b, h), so the short tiles fill the tail. For training (D in {64,
+// 128}) the same kernel also writes each query row's log2-sum-exp2, and
+// three backward kernels take it (section "bf16 backward" below; the TPU
+// kernel has no backward: the JAX package trains through plain jnp).
 //
 // f32: flash_attention_tf32x3_kernel<D>, on the tensor cores in 3xTF32.
 // The f32 path runs on the card wherever a model is f32: the mesh program's
@@ -587,11 +590,41 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
   else wgmma_rs_n128(o, a, b);
 }
 
+// a warpgroup's 64 rows of a (64 x D) f32 accumulator in bf16 into rows
+// row0 .. row0 + 63 of a swizzled tile of `rows` rows a box (the layout
+// the tensor map stores from), then one TMA store per box by thread 0
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], uint32_t tile, int rows,
+                                           int row0, int r0, int cq, int wgi, int tid,
+                                           const CUtensorMap* map, int head, int s0, int b) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + cq, c = col / C::BOX;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t off = c * rows * C::SW + (row0 + r0 + 8 * hh) * C::SW + (col % C::BOX) * 2;
+      const uint32_t swz = off ^ (((off >> 7) & (C::SW / 16 - 1)) << 4);
+      const uint32_t val = pack_bf16(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(tile + swz), "r"(val) : "memory");
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the TMA store
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < C::NC; ++c)
+      tma_store(map, tile + c * rows * C::SW + row0 * C::SW, c * C::BOX, head, s0, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o, int H,
-    int n_rep, int S, int causal, float scale_log2) {
+    int n_rep, int S, int causal, float scale_log2, float* __restrict__ lse, int S_pad) {
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -758,37 +791,31 @@ __global__ void __launch_bounds__(NTHREADS, 1) flash_attention_wgmma_kernel(
     }
 
     // epilogue: o / l in bf16 into this warpgroup's rows of the Q tile (its
-    // reads of them are complete), in the tensor map's swizzled layout
+    // reads of them are complete), then TMA stores
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    if (lse != nullptr && cq == 0) {  // the training form: each row's log2-sum-exp2 (m + log2 l)
+      float* lb = lse + (long long)bh * S_pad;
+      lb[i0] = l0 > 0.f ? m0 + log2f(l0) : INFINITY;  // an empty row's p = 2^(s - inf) = 0
+      lb[i1] = l1 > 0.f ? m1 + log2f(l1) : INFINITY;
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      const int col = 8 * j + cq, c = col / C::BOX;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = wgi * 64 + r0 + 8 * hh;
-        const uint32_t off = c * BQ * C::SW + row * C::SW + (col % C::BOX) * 2;
-        const uint32_t swz = off ^ (((off >> 7) & (C::SW / 16 - 1)) << 4);
-        const float inv = hh ? inv1 : inv0;
-        const uint32_t val = pack_bf16(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sQ + swz), "r"(val) : "memory");
-      }
+      o[4 * j] *= inv0;
+      o[4 * j + 1] *= inv0;
+      o[4 * j + 2] *= inv1;
+      o[4 * j + 3] *= inv1;
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the TMA store
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
-    if (tid == 0) {
-#pragma unroll
-      for (int c = 0; c < C::NC; ++c)
-        tma_store(&tm_o, sQ + c * BQ * C::SW + wgi * 64 * C::SW, c * C::BOX, h, q0 + wgi * 64, b);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    }
+    store_rows<D>(o, sQ, BQ, wgi * 64, r0, cq, wgi, tid, &tm_o, h, q0 + wgi * 64, b);
   }
 }
+
+// rows of a (B, H, S_pad) log-sum-exp or delta array: S rounded up to whole 128-row tiles
+inline int padded(int S) { return (S + BQ - 1) / BQ * BQ; }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -834,7 +861,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
            long long q_sb, long long q_ss, long long kv_sb, long long kv_ss, int causal,
-           void* stream) {
+           void* stream, float* lse = nullptr) {
   using C = Cfg<D>;
   auto kern = flash_attention_wgmma_kernel<D>;
   cudaError_t err =
@@ -850,7 +877,496 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     dim3 grid(B * H, (S + BQ - 1) / BQ);  // every (b, h) of one query tile, heaviest tile first
     const float scale_log2 = (1.0f / sqrtf((float)D)) * 1.4426950408889634f;
     kern<<<grid, NTHREADS, C::SMEM, (cudaStream_t)stream>>>(tq, tk, tv, to, H, H / Hkv, S, causal,
-                                                            scale_log2);
+                                                            scale_log2, lse, padded(S));
+  }
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16 backward (the training form): delta, then dK and dV, then dQ
+// ---------------------------------------------------------------------------
+//
+// Given the forward's output o and its rows' log2-sum-exp2 lse (both from
+// flash_attention_wgmma_kernel with lse on) and do = dL/do, with
+// p = 2^(s * scale_log2 - lse) the forward's probabilities (s = q . k):
+//   delta_i = sum_d do_id o_id (f32)
+//   ds_ij   = p_ij (do_i . v_j - delta_i) * scale
+//   dv_j = sum_i p_ij do_i,  dk_j = sum_i ds_ij q_i,  dq_i = sum_j ds_ij k_j
+// Three kernels on one stream, none with an atomic, so every gradient is
+// summed in one fixed order and repeats bitwise:
+//   - flash_attention_bwd_delta_kernel: delta, D / 8 lanes a row;
+//   - flash_attention_bwd_dkdv_kernel<D>: one block a (b, KV head, 128
+//     keys), its K and V tiles loaded once; consumer warpgroups 0 and 1 own
+//     64 keys each. It walks the query heads of its KV head (GQA: their sums
+//     meet in the block's registers, nothing repeated) and, for each, the
+//     query tiles of 64 from the diagonal on (causal), which the producer
+//     warpgroup brings through a TMA ring: Q and do tiles, and the tile's
+//     lse and delta by bulk copy. Per tile: s^T = K Q^T and dp^T = V do^T
+//     (wgmma, both operands in shared memory, K-major), then p^T and ds^T on
+//     the accumulators in registers, rounded to bf16 as the A operands of
+//     dV += p^T do and dK += ds^T Q (wgmma, do and Q MN-major);
+//   - flash_attention_bwd_dq_kernel<D>: one block a (b, head, 128 query
+//     rows), as the forward: its Q and do tiles once, K and V tiles of 64
+//     keys through the ring up to the diagonal; s = Q K^T, dp = do V^T,
+//     ds in registers, dQ += ds K.
+// p and ds are rounded to bf16 for their products, as the plain path's
+// autograd rounds them; s, dp and every sum stay f32. dK, dV and dQ are
+// rounded to bf16 once and written by TMA stores (rows at or beyond S
+// clipped). Bound on this card, as the forward: operations (five
+// products of the forward's size against the forward's two).
+
+constexpr int BW_PRODUCER_REGS = 24, BW_CONSUMER_REGS = 240;  // 128*24 + 256*240 <= 65,536
+
+// D (64 x 64, f32) (+)= A (64 x 16, bf16, shared, K-major) . B (16 x 64, bf16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global into
+// shared memory, completing on barrier bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+// the (64 x 64) accumulator of s (or its transpose) as the bf16 A fragments
+// of four k16 steps: keys (or queries) 16kk .. 16kk + 15 of step kk
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// delta[(b * H + h) * S_pad + i] = sum_d do[b, i, h, d] o[b, i, h, d] for
+// i < S, 0 for S <= i < S_pad; D / 8 lanes a row, 8 values each
+template <int D>
+__global__ void __launch_bounds__(256) flash_attention_bwd_delta_kernel(
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+    float* __restrict__ delta, int H, int S, int S_pad, long long q_sb, long long q_ss,
+    long long n_rows) {
+  constexpr int T = D / 8;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = g / T;
+  const int part = (int)(g - row * T);
+  float acc = 0.f;
+  if (row < n_rows) {
+    const long long bh = row / S_pad;
+    const int i = (int)(row - bh * S_pad), b = (int)(bh / H), h = (int)(bh - (long long)b * H);
+    if (i < S) {
+      const long long off = b * q_sb + i * q_ss + (long long)h * D + part * 8;
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + off);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dout + off);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(o2[e]), c = __bfloat1622float2(d2[e]);
+        acc = fmaf(a.x, c.x, acc);
+        acc = fmaf(a.y, c.y, acc);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = T / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < n_rows && part == 0) delta[row] = acc;
+}
+
+template <int D>
+struct KvCfg {  // flash_attention_bwd_dkdv_kernel
+  static constexpr int BK = 128;  // keys a block: 64 a consumer warpgroup
+  static constexpr int BQ = 64;   // query rows a step
+  static constexpr int STAGES = 3;
+  static constexpr int KV_BYTES = BK * D * 2;  // the K tile, and the V tile
+  static constexpr int Q_BYTES = BQ * D * 2;   // a stage's Q tile, and its do tile
+  static constexpr int BARRIERS = 1 + 2 * STAGES;  // K and V; full[STAGES]; empty[STAGES]
+  static constexpr int SMEM =
+      1024 + 2 * KV_BYTES + 2 * STAGES * Q_BYTES + 2 * STAGES * BQ * 4 + 8 * BARRIERS;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_attention_bwd_dkdv_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_dk, const __grid_constant__ CUtensorMap tm_dv,
+    const float* __restrict__ lse, const float* __restrict__ delta, int H, int Hkv, int S,
+    int S_pad, int causal, float scale_log2, float scale) {
+  using C = Cfg<D>;
+  using K = KvCfg<D>;
+  constexpr int BQ = K::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sV = sK + K::KV_BYTES;
+  const uint32_t sQ = sV + K::KV_BYTES;            // STAGES Q tiles
+  const uint32_t sO = sQ + K::STAGES * K::Q_BYTES;  // STAGES do tiles
+  const uint32_t sL = sO + K::STAGES * K::Q_BYTES;  // STAGES x BQ lse
+  const uint32_t sDl = sL + K::STAGES * BQ * 4;     // STAGES x BQ delta
+  const uint32_t bar_kv = sDl + K::STAGES * BQ * 4;
+  const uint32_t bar_full = bar_kv + 8, bar_empty = bar_full + 8 * K::STAGES;
+
+  const int n_rep = H / Hkv;
+  const int b = blockIdx.x / Hkv, kvh = blockIdx.x - b * Hkv;
+  const int k0 = blockIdx.y * K::BK;  // the lowest key tiles (the most query tiles, causal) first
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;  // the first query tile that sees one of these keys
+  const int nq = n_qt - qt0, n_it = n_rep * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+#pragma unroll
+    for (int st = 0; st < K::STAGES; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ---- producer: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(BW_PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_kv, 2 * K::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::NC; ++c) {
+        tma_load(sK + c * K::BK * C::SW, &tm_k, bar_kv, c * C::BOX, kvh, k0, b);
+        tma_load(sV + c * K::BK * C::SW, &tm_v, bar_kv, c * C::BOX, kvh, k0, b);
+      }
+      int st = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < n_it; ++it) {
+        const int r = it / nq, qt = qt0 + (it - r * nq), h = kvh * n_rep + r;
+        mbar_wait(bar_empty + 8 * st, phase ^ 1);
+        const uint32_t full = bar_full + 8 * st;
+        mbar_expect_tx(full, 2 * K::Q_BYTES + 2 * BQ * 4);
+#pragma unroll
+        for (int c = 0; c < C::NC; ++c) {
+          tma_load(sQ + st * K::Q_BYTES + c * BQ * C::SW, &tm_q, full, c * C::BOX, h, qt * BQ, b);
+          tma_load(sO + st * K::Q_BYTES + c * BQ * C::SW, &tm_do, full, c * C::BOX, h, qt * BQ, b);
+        }
+        const long long row = (long long)(b * H + h) * S_pad + qt * BQ;
+        bulk_load(sL + st * BQ * 4, lse + row, BQ * 4, full);
+        bulk_load(sDl + st * BQ * 4, delta + row, BQ * 4, full);
+        if (++st == K::STAGES) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns keys k0 + 64 wgi .. + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(BW_CONSUMER_REGS));
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int r0 = warp * 16 + (lane >> 2);  // this thread's key rows: r0 and r0 + 8
+    const int kw0 = k0 + wgi * 64, key0 = kw0 + r0;
+    const int cq = 2 * (lane & 3);  // its query column pair within each 8 columns
+
+    float dv[D / 2], dk[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
+    // A: this warpgroup's 64 rows of K, and of V; K-major
+    const uint64_t ak = smem_desc(sK + wgi * 64 * C::SW, 16, 8 * C::SW, C::LAYOUT);
+    const uint64_t av = smem_desc(sV + wgi * 64 * C::SW, 16, 8 * C::SW, C::LAYOUT);
+    mbar_wait(bar_kv, 0);
+    int st = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < n_it; ++it) {
+      const int q0 = (qt0 + it % nq) * BQ;
+      mbar_wait(bar_full + 8 * st, phase);
+      if (!(causal && q0 + BQ - 1 < kw0)) {  // else every query of the tile precedes every key
+        const uint32_t qst = sQ + st * K::Q_BYTES, ost = sO + st * K::Q_BYTES;
+        // 1. s^T = K Q^T and dp^T = V do^T (64 keys x 64 queries), f32
+        float s[32], dp[32];
+        const uint64_t bq = smem_desc(qst, 16, 8 * C::SW, C::LAYOUT);
+        const uint64_t bo = smem_desc(ost, 16, 8 * C::SW, C::LAYOUT);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a_off = (kk / C::KPB) * K::BK * C::SW + (kk % C::KPB) * 32;
+          const uint32_t b_off = (kk / C::KPB) * BQ * C::SW + (kk % C::KPB) * 32;
+          wgmma_ss_n64(s, ak + (a_off >> 4), bq + (b_off >> 4), kk > 0);
+          wgmma_ss_n64(dp, av + (a_off >> 4), bo + (b_off >> 4), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // 2. p^T and ds^T in place. s[4j + 2h + e] is key row r0 + 8h, query
+        // q0 + 8j + cq + e; masked: queries or keys at or beyond S, keys after
+        // the query (causal)
+        const bool edge = q0 + BQ > S || kw0 + 64 > S || (causal && q0 < kw0 + 63);
+        const uint32_t lst = sL + st * BQ * 4, dst = sDl + st * BQ * 4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 lv = lds_f2(lst + (8 * j + cq) * 4), dl = lds_f2(dst + (8 * j + cq) * 4);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int x = 4 * j + 2 * hh + e;
+              float p = ex2(fmaf(s[x], scale_log2, -(e ? lv.y : lv.x)));
+              if (edge) {
+                const int q = q0 + 8 * j + cq + e, key = key0 + 8 * hh;
+                if (q >= S || key >= S || (causal && key > q)) p = 0.f;
+              }
+              s[x] = p;
+              dp[x] = p * (dp[x] - (e ? dl.y : dl.x)) * scale;
+            }
+          }
+        }
+
+        // 3. dV += p^T do, dK += ds^T Q: A from registers in bf16, B (do, Q:
+        // queries x D) MN-major, 8-query groups 8 * SW apart, boxes BQ * SW
+        uint32_t pa[4][4], da[4][4];
+        to_a_frags(pa, s);
+        to_a_frags(da, dp);
+        const uint64_t to = smem_desc(ost, BQ * C::SW, 8 * C::SW, C::LAYOUT);
+        const uint64_t tq = smem_desc(qst, BQ * C::SW, 8 * C::SW, C::LAYOUT);
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(dv, pa[kk], to + ((kk * 16 * C::SW) >> 4));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(dk, da[kk], tq + ((kk * 16 * C::SW) >> 4));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);  // this warp is done with the stage
+      if (++st == K::STAGES) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    // epilogue: dK and dV into this warpgroup's own rows of the K and V
+    // tiles (only it read them), then TMA stores
+    store_rows<D>(dk, sK, K::BK, wgi * 64, r0, cq, wgi, tid, &tm_dk, kvh, kw0, b);
+    store_rows<D>(dv, sV, K::BK, wgi * 64, r0, cq, wgi, tid, &tm_dv, kvh, kw0, b);
+  }
+}
+
+template <int D>
+struct DqCfg {  // flash_attention_bwd_dq_kernel
+  static constexpr int BQ = 128;  // query rows a block: 64 a consumer warpgroup
+  static constexpr int BK = 64;   // keys a step
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = BQ * D * 2;   // the Q tile, and the do tile
+  static constexpr int KV_BYTES = BK * D * 2;  // a stage's K tile, and its V tile
+  static constexpr int BARRIERS = 1 + 2 * STAGES;
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1) flash_attention_bwd_dq_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+    const float* __restrict__ delta, int H, int n_rep, int S, int S_pad, int causal,
+    float scale_log2, float scale) {
+  using C = Cfg<D>;
+  using Q = DqCfg<D>;
+  constexpr int BK = Q::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sO = sQ + Q::Q_BYTES;
+  const uint32_t sK = sO + Q::Q_BYTES;                // STAGES K tiles
+  const uint32_t sV = sK + Q::STAGES * Q::KV_BYTES;  // STAGES V tiles
+  const uint32_t bar_q = sV + Q::STAGES * Q::KV_BYTES;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * Q::STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H, kvh = h / n_rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * Q::BQ;  // heaviest causal tiles first
+  const int n_all = (S + BK - 1) / BK;
+  const int n_kt = causal ? min(n_all, (q0 + Q::BQ) / BK) : n_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int st = 0; st < Q::STAGES; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(BW_PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_q, 2 * Q::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::NC; ++c) {
+        tma_load(sQ + c * Q::BQ * C::SW, &tm_q, bar_q, c * C::BOX, h, q0, b);
+        tma_load(sO + c * Q::BQ * C::SW, &tm_do, bar_q, c * C::BOX, h, q0, b);
+      }
+      int st = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_kt; ++t) {
+        mbar_wait(bar_empty + 8 * st, phase ^ 1);
+        const uint32_t full = bar_full + 8 * st;
+        mbar_expect_tx(full, 2 * Q::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::NC; ++c) {
+          tma_load(sK + st * Q::KV_BYTES + c * BK * C::SW, &tm_k, full, c * C::BOX, kvh, t * BK, b);
+          tma_load(sV + st * Q::KV_BYTES + c * BK * C::SW, &tm_v, full, c * C::BOX, kvh, t * BK, b);
+        }
+        if (++st == Q::STAGES) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns query rows q0 + 64 wgi .. + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(BW_CONSUMER_REGS));
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int r0 = warp * 16 + (lane >> 2);
+    const int qw0 = q0 + wgi * 64, i0 = qw0 + r0, i1 = i0 + 8;
+    const int cq = 2 * (lane & 3);
+    const long long rows = (long long)bh * S_pad;  // i0, i1 < S_pad: rows of whole 128-row tiles
+    const float lse0 = lse[rows + i0], lse1 = lse[rows + i1];
+    const float dl0 = delta[rows + i0], dl1 = delta[rows + i1];
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    const uint64_t aq = smem_desc(sQ + wgi * 64 * C::SW, 16, 8 * C::SW, C::LAYOUT);
+    const uint64_t ao = smem_desc(sO + wgi * 64 * C::SW, 16, 8 * C::SW, C::LAYOUT);
+    mbar_wait(bar_q, 0);
+    int st = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_kt; ++t) {
+      const int kb0 = t * BK;
+      mbar_wait(bar_full + 8 * st, phase);
+      if (!(causal && kb0 > qw0 + 63)) {  // else the tile lies wholly after this warpgroup's rows
+        const uint32_t kst = sK + st * Q::KV_BYTES, vst = sV + st * Q::KV_BYTES;
+        // 1. s = Q K^T and dp = do V^T (64 rows x 64 keys), f32
+        float s[32], dp[32];
+        const uint64_t bk = smem_desc(kst, 16, 8 * C::SW, C::LAYOUT);
+        const uint64_t bv = smem_desc(vst, 16, 8 * C::SW, C::LAYOUT);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a_off = (kk / C::KPB) * Q::BQ * C::SW + (kk % C::KPB) * 32;
+          const uint32_t b_off = (kk / C::KPB) * BK * C::SW + (kk % C::KPB) * 32;
+          wgmma_ss_n64(s, aq + (a_off >> 4), bk + (b_off >> 4), kk > 0);
+          wgmma_ss_n64(dp, ao + (a_off >> 4), bv + (b_off >> 4), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // 2. ds in place: s[4j + 2h + e] is row r0 + 8h, key kb0 + 8j + cq + e
+        const bool edge = kb0 + BK > S || (causal && kb0 + BK - 1 > qw0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int x = 4 * j + 2 * hh + e;
+              float p = ex2(fmaf(s[x], scale_log2, -(hh ? lse1 : lse0)));
+              if (edge) {
+                const int key = kb0 + 8 * j + cq + e;
+                if (key >= S || (causal && key > (hh ? i1 : i0))) p = 0.f;
+              }
+              dp[x] = p * (dp[x] - (hh ? dl1 : dl0)) * scale;
+            }
+          }
+        }
+
+        // 3. dQ += ds K: ds from registers in bf16, K (keys x D) MN-major
+        uint32_t da[4][4];
+        to_a_frags(da, dp);
+        const uint64_t tk = smem_desc(kst, BK * C::SW, 8 * C::SW, C::LAYOUT);
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(dq, da[kk], tk + ((kk * 16 * C::SW) >> 4));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dq);
+      }
+      if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+      if (++st == Q::STAGES) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    // epilogue: dQ into this warpgroup's own rows of the Q tile, then TMA stores
+    store_rows<D>(dq, sQ, Q::BQ, wgi * 64, r0, cq, wgi, tid, &tm_dq, h, qw0, b);
+  }
+}
+
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int H,
+               int Hkv, int S, long long q_sb, long long q_ss, long long kv_sb, long long kv_ss,
+               int causal, void* stream) {
+  using C = Cfg<D>;
+  auto kkv = flash_attention_bwd_dkdv_kernel<D>;
+  auto kq = flash_attention_bwd_dq_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, KvCfg<D>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, DqCfg<D>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0 && S > 0 && H > 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int S_pad = padded(S);
+    const long long n_rows = (long long)B * H * S_pad;
+    const long long lanes = n_rows * (D / 8);
+    flash_attention_bwd_delta_kernel<D><<<(unsigned)((lanes + 255) / 256), 256, 0, st>>>(
+        (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, delta, H, S, S_pad, q_sb, q_ss,
+        n_rows);
+    CUtensorMap tq64, tdo64, tk128, tv128, tdk, tdv, tq128, tdo128, tk64, tv64, tdq;
+    if (!make_map(&tq64, q, D, H, S, B, q_ss, q_sb, C::BOX, 64, C::SW) ||
+        !make_map(&tdo64, dout, D, H, S, B, q_ss, q_sb, C::BOX, 64, C::SW) ||
+        !make_map(&tk128, k, D, Hkv, S, B, kv_ss, kv_sb, C::BOX, 128, C::SW) ||
+        !make_map(&tv128, v, D, Hkv, S, B, kv_ss, kv_sb, C::BOX, 128, C::SW) ||
+        !make_map(&tdk, dk, D, Hkv, S, B, kv_ss, kv_sb, C::BOX, 64, C::SW) ||
+        !make_map(&tdv, dv, D, Hkv, S, B, kv_ss, kv_sb, C::BOX, 64, C::SW) ||
+        !make_map(&tq128, q, D, H, S, B, q_ss, q_sb, C::BOX, 128, C::SW) ||
+        !make_map(&tdo128, dout, D, H, S, B, q_ss, q_sb, C::BOX, 128, C::SW) ||
+        !make_map(&tk64, k, D, Hkv, S, B, kv_ss, kv_sb, C::BOX, 64, C::SW) ||
+        !make_map(&tv64, v, D, Hkv, S, B, kv_ss, kv_sb, C::BOX, 64, C::SW) ||
+        !make_map(&tdq, dq, D, H, S, B, q_ss, q_sb, C::BOX, 64, C::SW))
+      return (int)cudaErrorInvalidValue;
+    const float scale = 1.0f / sqrtf((float)D), scale_log2 = scale * 1.4426950408889634f;
+    const int n_tiles = (S + 127) / 128;
+    kkv<<<dim3(B * Hkv, n_tiles), NTHREADS, KvCfg<D>::SMEM, st>>>(
+        tq64, tk128, tv128, tdo64, tdk, tdv, lse, delta, H, Hkv, S, S_pad, causal, scale_log2,
+        scale);
+    kq<<<dim3(B * H, n_tiles), NTHREADS, DqCfg<D>::SMEM, st>>>(
+        tq128, tk64, tv64, tdo128, tdq, lse, delta, H, H / Hkv, S, S_pad, causal, scale_log2,
+        scale);
   }
   return (int)cudaGetLastError();
 }
@@ -881,6 +1397,41 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
     case 32: return wg::launch<32>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
     case 64: return wg::launch<64>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
     case 128: return wg::launch<128>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the bf16 forward of the training form: flash_attention_bf16, and each
+// query row's log2-sum-exp2 of its scaled scores into lse (B, H, S_pad) f32,
+// S_pad = S rounded up to a multiple of 128 (the rows past S get theirs too).
+// D in {64, 128}
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                        float* lse, int B, int H, int Hkv, int S, int D,
+                                        long long q_sb, long long q_ss, long long kv_sb,
+                                        long long kv_ss, int causal, void* stream) {
+  switch (D) {
+    case 64: return wg::launch<64>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream, lse);
+    case 128: return wg::launch<128>(q, k, v, o, B, H, Hkv, S, q_sb, q_ss, kv_sb, kv_ss, causal, stream, lse);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// its backward: dq, dk, dv (shaped and strided as q, k, v) from q, k, v, the
+// forward's o and lse, and dout (strided as q); delta (B, H, S_pad) f32 is
+// scratch. Three launches on the stream, in order
+extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                        const void* o, const void* dout, const float* lse,
+                                        float* delta, void* dq, void* dk, void* dv, int B, int H,
+                                        int Hkv, int S, int D, long long q_sb, long long q_ss,
+                                        long long kv_sb, long long kv_ss, int causal,
+                                        void* stream) {
+  switch (D) {
+    case 64:
+      return wg::launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Hkv, S, q_sb,
+                                q_ss, kv_sb, kv_ss, causal, stream);
+    case 128:
+      return wg::launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Hkv, S, q_sb,
+                                 q_ss, kv_sb, kv_ss, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

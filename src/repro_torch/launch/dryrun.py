@@ -46,9 +46,14 @@ and the output written once. The plain version's f32 S x S score passes,
 which the reference's prefill runs and XLA fuses, would be counted in full
 and never run on the card: counted so, llava-next-34b's prefill of 4 x
 3,136 positions got a 1,725 ms bound, above the 1,602 ms it takes on an
-H100 80GB HBM3 (700 W). The training form's attention is plain on the
-card too, and is counted as such, with every rematerialised forward the
-backward pass runs. A Python loop runs every layer, so a trace counts the
+H100 80GB HBM3 (700 W). The training form's attention is counted as the
+card runs it too: bf16 self-attention at head dim 64 or 128 without a
+window as the training kernels (``attention_train_op``: the forward's two
+products over the causal pairs, the backward's five, each pass's operands
+once), everything else (f32 models, windows, cross-attention) as its
+plain path, with every rematerialised forward the backward pass runs
+(the unit remat's recompute of the kernels' forward among them). A
+Python loop runs every layer, so a trace counts the
 whole depth (XLA counts a scan body once, which is why the reference fits
 its costs over depth); a full-depth training trace of the largest archs
 takes minutes, though, so ``run_one`` fits a training step's counts over

@@ -25,7 +25,8 @@ from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch import tracing
-from repro_torch.kernels.flash_attention.ops import gqa_attention_op
+from repro_torch.kernels.flash_attention.flash_attention import TRAIN_HEAD_DIMS
+from repro_torch.kernels.flash_attention.ops import attention_train_op, gqa_attention_op
 from repro_torch.sharding.ctx import constrain, placed_like, reduce_partial, settle
 
 Params = dict
@@ -130,7 +131,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA; full-sequence self-attention through K9, the rest plain)
+# Attention (GQA; full-sequence self-attention through K9 and its training
+# form, the rest plain)
 # ---------------------------------------------------------------------------
 
 def attention_init(draw, cfg, dtype) -> Params:
@@ -182,27 +184,50 @@ def _sdpa_block(q, k, v, mask, scale):
 Q_CHUNK = 1024  # the plain path's query rows a block (the reference's default)
 
 
+def fused_attention_applies(q, k, cfg) -> bool:
+    """Whether the training form takes the hand-written kernels
+    (``attention_train_op``): bf16 self-attention (Sq == Sk) on the card,
+    or on a dry run's meta twins of its tensors, head dim 64 or 128, no
+    sliding window. Read from the tensors as they are (a mesh rank's own
+    shards); positions are 0..S-1, as every full-sequence caller passes
+    them."""
+    return (cfg.sliding_window is None and (q.is_cuda or q.is_meta)
+            and q.dtype == torch.bfloat16 and k.dtype == q.dtype
+            and q.shape[-1] in TRAIN_HEAD_DIMS and q.shape[1] == k.shape[1])
+
+
 def _chunked_attention(q, k, v, positions, cfg, causal: bool = True) -> torch.Tensor:
-    """The reference's full-sequence path (``repro/models/layers.py:147-185``):
-    k and v repeated to every query head, q, k and v constrained to
-    ("batch", None, "model", None) as the reference constrains them, then
-    ``_attend``: ``_sdpa_block`` over query chunks of ``Q_CHUNK`` rows (the
-    largest chunk that divides S when ``Q_CHUNK`` does not: 750 for
-    whisper's 1,500 frames), so a (chunk, Sk) score tile is the largest live
-    one; when ``q`` needs a gradient each chunk is recomputed in the backward
-    pass. Causal (and windowed, where the config has a window), or every key
-    when not ``causal`` (then k and v may be longer than q: cross-attention).
-    Plain torch, differentiable on every device; on a device mesh each rank
-    attends over its own batch rows and heads (``local_heads``). A call is
-    the span ``attn.fwd`` and its backward pass, the chunks' recompute
+    """The training form of full-sequence attention, causal (and windowed,
+    where the config has a window), or every key when not ``causal`` (then
+    k and v may be longer than q: cross-attention). Where
+    ``fused_attention_applies``, the hand-written flash attention and its
+    backward (``attention_train_op``): grouped KV heads read in place, no
+    (S, S) tile in device memory. Everywhere else the reference's path
+    (``repro/models/layers.py:147-185``), plain torch on every device: k
+    and v repeated to every query head, then ``_attend``: ``_sdpa_block``
+    over query chunks of ``Q_CHUNK`` rows (the largest chunk that divides S
+    when ``Q_CHUNK`` does not: 750 for whisper's 1,500 frames), so a
+    (chunk, Sk) score tile is the largest live one; when ``q`` needs a
+    gradient each chunk is recomputed in the backward pass. On a device
+    mesh q, k and v are constrained to ("batch", None, "model", None) as
+    the reference constrains them, k and v repeated first so that each
+    rank holds its query heads' KV heads, and each rank attends over its
+    own batch rows and heads (``local_heads``), by either path. A call is
+    the span ``attn.fwd`` and its backward pass, any recompute of chunks
     included, the span ``attn.bwd`` (``tracing.py``)."""
-    n_rep = cfg.n_heads // cfg.n_kv_heads
 
     def attend(q, k, v):
-        return _attend(q, k, v, positions, cfg, causal)
+        if fused_attention_applies(q, k, cfg):
+            return attention_train_op(q, k, v, causal=causal)
+        n_rep = q.shape[2] // k.shape[2]
+        return _attend(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), positions, cfg, causal)
 
     with tracing.span("attn.fwd"):
-        out = local_heads(attend, *_head_sharded(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)))
+        kr, vr = k, v
+        if isinstance(q, DTensor):
+            n_rep = cfg.n_heads // cfg.n_kv_heads
+            kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        out = local_heads(attend, *_head_sharded(q, kr, vr))
     tracing.backward_span("attn.bwd", out, (q, k, v))
     return out
 
@@ -274,15 +299,18 @@ def attention_apply(
     """Full-sequence attention, causal (``causal``) or over every key, in one
     of two forms the caller picks. Self-attention in the prefill form
     (``train=False``) goes through ``gqa_attention_op``: K9 on the card,
-    its plain version on the CPU; K9 has no backward, so its wrapper
-    refuses a card input that needs a gradient. K9 has no window: a
-    sliding window takes the reference's query-chunked plain path
-    (``_chunked_attention``) on every device. The training form
-    (``train=True``) is that path too, windowed or not, its chunks
-    recomputed in the backward pass. ``cross_kv = (enc, _)`` attends to
+    its plain version on the CPU; that kernel has no backward, so its
+    wrapper refuses a card input that needs a gradient. K9 has no window: a
+    sliding window takes ``_chunked_attention``'s plain query-chunked path
+    on every device. The training form (``train=True``) is
+    ``_chunked_attention``: on the card, bf16 self-attention at head dim 64
+    or 128 without a window runs K9's training form, a hand-written forward
+    and backward (``attention_train_op``); the rest (the CPU, f32 models,
+    windows, other head dims) the plain path, its chunks recomputed in the
+    backward pass. ``cross_kv = (enc, _)`` attends to
     the encoder's output instead (whisper's decoder): k and v projected
-    from ``enc``, no RoPE, every key, always on the plain path (K9 takes
-    Sq == Sk only). With ``return_kv`` (self-
+    from ``enc``, no RoPE, every key, always on the plain path (the kernels
+    take Sq == Sk only). With ``return_kv`` (self-
     attention) also returns the roped k and the v, (B, S, n_kv, hd) each,
     for the cache (the reference recomputes them; they are the same
     tensors). ``rope``: the positions' ``rope_tables``."""

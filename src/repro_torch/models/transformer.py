@@ -386,9 +386,11 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     (repeats, B, S, n_kv, hd) per attention leaf, ``init_mamba_cache``'s
     layout for a mamba2 position.
 
-    ``train`` picks the training form of attention (the reference's
-    query-chunked plain attention, differentiable on the card) over the
-    prefill form (K9 on the card, which has no backward); the caller asks
+    ``train`` picks the training form of attention (differentiable: K9's
+    training kernels on the card for bf16 self-attention at head dim 64 or
+    128 without a window, the reference's query-chunked plain attention
+    otherwise) over the prefill form (K9 on the card, whose prefill
+    wrapper has no backward); the caller asks
     for it, it is never inferred from the inputs. ``remat`` (training form
     only) recomputes each unit in the backward pass, all of it under
     ``remat_policy`` "full", all but its named outputs under "save_comm"."""

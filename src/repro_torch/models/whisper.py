@@ -11,9 +11,10 @@ takes the place of ``lax.scan``.
 ``encode`` and ``decode_full`` take ``transformer.forward``'s ``train``
 flag. The prefill form (``train=False``, no gradient) sends the encoder's
 self-attention (every key) and the decoder's causal self-attention through
-K9 on the card; the training form (``loss_fn``) takes the reference's
-query-chunked plain attention, which has a backward. Cross-attention is
-always the plain path (K9 takes Sq == Sk only). Operands of two dtypes (f32
+K9 on the card; the training form (``loss_fn``) sends both through K9's
+training kernels on the card in bf16 (forward and backward), the
+reference's query-chunked plain attention elsewhere. Cross-attention is
+always the plain path (the kernels take Sq == Sk only). Operands of two dtypes (f32
 frames on bf16 weights) are promoted as in JAX (``layers.mm``).
 """
 from __future__ import annotations

@@ -6,7 +6,8 @@ The trace runs the port's step on ``meta`` twins of ``launch/specs.py``'s
 fake structures: shapes only, so full-width kimi-k2 (1.04 T parameters)
 traces without a byte of weights. Its FLOPs are the products'
 (``FlopCounterMode``), its bytes each op's inputs and outputs, and K9's
-work where the card launches it (a prefill's self-attention).
+work where the card launches it (a prefill's self-attention, and the
+training form's bf16 self-attention at head dim 64 or 128).
 """
 import dataclasses
 import functools
@@ -150,6 +151,76 @@ def test_k9_counts_its_operands_once():
     assert c.flops == 4 * 64 * 2 * 8 * 256 * 256 and c.out_bytes == q.numel() * 2
     with pytest.raises(RuntimeError, match="outside a dry run"):
         gqa_attention_op(*(torch.empty((1, 4, 2, 8), device="meta") for _ in range(3)))
+
+
+
+@pytest.mark.parametrize("arch", ["granite-20b", "minicpm-2b"])
+def test_bf16_training_forward_counts_the_training_kernels(arch):
+    """The training form in bf16 at head dim 64 (granite's MQA, minicpm's
+    MHA): the attention counted as the training kernels run it on the card,
+    4·B·H·hd·S(S+1)/2 a layer (the causal pairs) and one call a layer, not
+    the plain path's S x S products."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="bfloat16")
+    B, S = 2, 96
+    params, _ = specs.param_structs(cfg, D.ONE_CARD)
+    (tokens,) = _fake((B, S), dtype=torch.int32)
+    c = _cost(lambda p, t: transformer.forward(p, cfg, t, train=True), params, tokens)
+    hd, H, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    per_layer = cfg.d_model * (H + 2 * kv) * hd + H * hd * cfg.d_model + 3 * cfg.d_model * cfg.d_ff
+    head = cfg.d_model * transformer.padded_vocab(cfg)
+    pairs = S * (S + 1) // 2
+    want = 2 * B * S * (cfg.n_layers * per_layer + head) + cfg.n_layers * 4 * B * H * hd * pairs
+    assert c.flops == want and c.kernel_calls == cfg.n_layers
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "every_key"])
+def test_the_training_kernels_count_their_work(causal):
+    """``attention_train_op`` on meta tensors, forward and backward: the
+    forward the prefill kernel's work and its log-sum-exp written; the
+    backward five products of that size, twice the forward's operands,
+    the log-sum-exp read and the row sums written and read. Outside a
+    trace a meta tensor raises."""
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.flash_attention.ops import attention_train_op
+
+    B, S, H, kv, d = 2, 200, 8, 2, 64
+    q = torch.empty((B, S, H, d), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    k, v = (torch.empty((B, S, kv, d), dtype=torch.bfloat16, device="meta", requires_grad=True)
+            for _ in range(2))
+    with backend.tracing() as t:
+        out = attention_train_op(q, k, v, causal=causal)
+        assert out.shape == q.shape and out.dtype == q.dtype
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    operands = (2 * q.numel() + 2 * k.numel()) * 2
+    plane = 4 * B * H * 256  # S rounded up to whole 128-row query tiles
+    assert t.work == {
+        "flash_attention_train_fwd": [1, 4 * d * B * H * pairs, operands + plane],
+        "flash_attention_train_bwd": [1, 10 * d * B * H * pairs, 2 * operands + 3 * plane]}
+    with pytest.raises(RuntimeError, match="outside a dry run"):
+        attention_train_op(q, k, v)
+
+
+def test_a_bf16_training_step_counts_each_kernel_pass():
+    """A bf16 shadow training step of reduced minicpm-2b (remat on, two
+    microbatches): the training kernels' forward twice a layer and
+    microbatch (the forward and the unit's recompute) and their backward
+    once; the same step in f32 counts no kernel and the plain path's
+    products instead (16·B·H·hd·S² a layer and microbatch: two forwards
+    of two products, the backward's four) where the kernels count
+    18·B·H·hd·S(S+1)/2."""
+    base = reduced(get_config("minicpm-2b"))
+    shape = InputShape("x", 64, 4, "train")
+    costs = {dt: D._trace_cost(D.build(dataclasses.replace(base, dtype=dt), "x", D.ONE_CARD,
+                                       mode="shadow", n_replicas=1, n_microbatches=2,
+                                       optimizer="adam", shape_override=shape))
+             for dt in ("float32", "bfloat16")}
+    L, B, S, H, hd = base.n_layers, 2, 64, base.n_heads, base.resolved_head_dim
+    assert costs["float32"].kernel_calls == 0
+    assert costs["bfloat16"].kernel_calls == 2 * 3 * L
+    plain, fused = 16 * S * S, 18 * (S * (S + 1) // 2)
+    assert costs["float32"].flops - costs["bfloat16"].flops == 2 * L * B * H * hd * (plain - fused)
 
 
 # ---------------------------------------------------------------------------
